@@ -4,7 +4,8 @@ Usage:
     python examples/capture_flight.py [scene] [backend] [WxH] [frames]
 
 Scenes: any of swift3drenderer_tpu.models.SCENES, a data.bin path, or an OBJ.
-Backends: xla (default; portable), pallas (fastest on TPU), native (C++ CPU).
+Backends: xla (default; portable), pallas (the tile kernel; needs a GPU), native
+(C++ CPU).
 """
 
 import os

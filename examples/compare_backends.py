@@ -1,6 +1,9 @@
 """Render the same frame on every backend and report agreement + speed.
 
 Usage: python examples/compare_backends.py [scene] [WxH]
+
+On a CPU the pallas backend runs in the Pallas interpreter (and says so): its
+time there is the interpreter's, not the kernel's.
 """
 
 import os
@@ -9,6 +12,7 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
+import jax
 import numpy as np
 
 from swift3drenderer_tpu.camera import Camera, Input
@@ -35,15 +39,20 @@ def main() -> None:
     golden_px, _ = golden_render(scene, m, w, h)
     print(f"golden (NumPy oracle): {(time.perf_counter() - t0) * 1e3:8.1f} ms")
 
+    interpret = jax.default_backend() == "cpu"
     for backend in ("xla", "pallas", "native"):
+        label = backend
+        if backend == "pallas" and interpret:
+            label = "pallas (interpreter)"
         try:
-            r = Renderer(scene, backend=backend)
+            r = Renderer(scene, backend=backend,
+                         interpret=(backend == "pallas" and interpret))
             r.render(m, w, h)  # warm up / compile
             t0 = time.perf_counter()
             px, _ = r.render(m, w, h)
             dt = (time.perf_counter() - t0) * 1e3
             frac = mismatch(golden_px, px)
-            print(f"{backend:22s} {dt:8.1f} ms   "
+            print(f"{label:22s} {dt:8.1f} ms   "
                   f"pixel mismatch vs golden: {frac * 100:.3f}%")
         except Exception as exc:
             print(f"{backend:22s} unavailable: {type(exc).__name__}: {exc}")

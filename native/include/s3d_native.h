@@ -4,7 +4,7 @@
  * (reference main.swift:96-98, render-cpp/render.cpp:264). This framework keeps
  * that shape: a native library loadable via dlopen/ctypes, exposing scene IO and
  * a CPU render core. The core is NOT a port of the reference's: it mirrors this
- * framework's TPU pipeline (structure-of-arrays scene, fixed-shape near-plane
+ * framework's device pipeline (structure-of-arrays scene, fixed-shape near-plane
  * clip prepass, per-triangle setup table, visibility resolve + deferred shading)
  * so the native and device implementations stay behavioral twins — the same
  * dual-implementation cross-check structure the reference uses between its Swift

@@ -1,4 +1,4 @@
-/* Native CPU render core — behavioral twin of the TPU pipeline.
+/* Native CPU render core — behavioral twin of the device pipeline.
  *
  * Same architecture as the device path (renderer.py + ops/): structure-of-arrays
  * scene, batched vertex/normal transform, fixed-shape near-plane clip prepass
@@ -699,8 +699,8 @@ extern "C" void s3d_render(s3d_renderer *r, const float *m,
                 }
             }
             /* Winner pixels are disjoint across slots, so per-slot masked
-             * overwrite shades each pixel exactly once (TPU kernel's deferred
-             * structure, raster_pallas.py phase 2). */
+             * overwrite shades each pixel exactly once (the deferred shade of
+             * the device pipeline). */
             for (size_t sidx = 0; sidx < r->slots.size(); sidx++) {
                 const Slot &sl = r->slots[sidx];
                 if (!sl.live) continue;

@@ -1,4 +1,4 @@
-"""swift3drenderer_tpu — a TPU-native 3D rendering framework.
+"""swift3drenderer_tpu — a 3D rendering framework in JAX for the GPU.
 
 A brand-new JAX/XLA/Pallas implementation of the capabilities of
 sarastro-nl/Swift3DRenderer (a CPU software rasterizer): perspective fly-around
@@ -6,9 +6,10 @@ camera, near-plane clipping with triangle split, edge-function rasterization wit
 1/z depth buffering, perspective-correct interpolation, flat-color and anisotropic
 ripmap-textured shading, and the reference's exact ``data.bin`` scene format.
 
-The compute path is recast TPU-first: vertex transforms as batched matmuls, a
-fixed-shape clip prepass instead of mid-frame appends, and tiled coverage-mask
-rasterization (XLA and Pallas backends) instead of the reference's scalar edge walk.
+The compute path is recast for an accelerator: vertex transforms as batched
+matmuls, a fixed-shape clip prepass instead of mid-frame appends, and tiled
+rasterization (a Pallas kernel for the GPU, and a plain XLA backend) instead of
+the reference's scalar edge walk.
 """
 
 from .camera import Camera, Input, KeyboardState

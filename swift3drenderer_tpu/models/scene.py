@@ -117,12 +117,12 @@ def regular_floor_scene(seed: int = 0, size: int = 30,
 
 def stress100k_scene(seed: int = 0, objects: int = 8400,
                      textures: Optional[np.ndarray] = None) -> Scene:
-    """~100k-triangle scale proof (round 5): the stress field an order of
-    magnitude up — 8400 polyhedra (100,803 triangles: the icosa/tetra mix
-    averages 12 faces per object, plus floor and marker; ~25 triangle chunks
-    at the 4096-slot cap, compacted to the live count per frame). The scene
-    exists as a named family so the scale bench (BASELINE.md) and the
-    on-chip golden check (tools/tpu_validate.py) pin it down."""
+    """~100k-triangle scale proof: the stress field an order of magnitude
+    up — 8400 polyhedra (100,803 triangles: the icosa/tetra mix averages 12
+    faces per object, plus floor and marker), all in one kernel launch per
+    frame. The scene exists as a named family so the scale bench
+    (bench.py --all-configs) and the on-card check (chip_smoke.py) pin it
+    down."""
     return stress_scene(seed=seed, objects=objects, textures=textures)
 
 

@@ -2,7 +2,7 @@
 
 The reference loads its C++ render core as a dylib at runtime
 (reference main.swift:96-98); this framework mirrors that: the native library is
-an optional, dlopen'd CPU twin of the TPU pipeline used for host-side fallback
+an optional, dlopen'd CPU twin of the device pipeline used for host-side fallback
 rendering, fast scene IO, and cross-checking. Build it with ``make -C native``;
 ``load_native()`` raises a clear error when the library is absent.
 """

@@ -47,9 +47,8 @@ def clip_prepass(
 
     # The unique same-side edge s: front[s] == front[s+1] (render.swift:181-185).
     def rot1(x):
-        """``x[:, [1, 2, 0]]`` as a slice+concat — constant-index gathers
-        still lower to (scalarizing) gather ops on TPU; the rotation form is
-        two contiguous copies."""
+        """``x[:, [1, 2, 0]]`` as a slice+concat: two contiguous copies
+        instead of a gather op."""
         return jnp.concatenate([x[:, 1:], x[:, :1]], axis=1)
 
     same = front == rot1(front)          # (T, 3)
@@ -58,10 +57,9 @@ def clip_prepass(
     prc = (s + 2) % 3
 
     def sel_corner(arr, idx):
-        """``arr[t, idx[t], ...]`` for idx in [0, 3) as 3 masked selects — a
-        per-row dynamic gather (take_along_axis / arange indexing) SCALARIZES
-        on TPU at ~7.5 ns/row, which made this prepass ~5 ms at 10k triangles;
-        the select form is pure vector ops."""
+        """``arr[t, idx[t], ...]`` for idx in [0, 3) as 3 masked selects
+        instead of a per-row dynamic gather: pure elementwise work that XLA
+        fuses with the rest of the prepass."""
         expand = (slice(None),) + (None,) * (arr.ndim - 2)
         out = jnp.zeros_like(arr[:, 0])
         for k in range(3):

@@ -1,2173 +1,314 @@
-"""Pallas tile rasterizer — the performance backend.
+"""Pallas tile rasterizer for the GPU (Triton route) — the performance backend.
 
 The reference renders each triangle by walking its bbox serially
-(render/render.swift:320-342): O(covered pixels) work on one CPU core. The TPU
-recast inverts the loop: the framebuffer is a grid of lane-aligned VMEM tiles, a
-binning prepass computes which triangles' bboxes touch each tile, and the kernel
-loops only the binned triangles per tile with all tile pixels evaluated per step.
+(render/render.swift:320-342). Here one Triton program owns one
+``TILE_H`` x ``TILE_W`` pixel tile of one frame; programs run in any order
+and share nothing. Each program:
 
-Three in-kernel phases per tile:
+1. **Visibility** — walks the broadband slots whose bbox touches the tile,
+   then the tile's own segment of binned slots (ops/binning.py), with a
+   dynamic trip count. A running (best 1/z, winner slot) pair per pixel stays
+   in registers. Greater 1/z wins and equal 1/z goes to the smaller slot id:
+   the reference's ``oneOverZ > depth`` test with 0-cleared depth and
+   earlier-triangle-wins ties (render.swift:323-325), made independent of the
+   order in which slots are visited.
+2. **Shade** — once per pixel, by gathering the winner's setup row:
+   perspective-correct weights, halfway-vector headlight
+   (render.swift:326-331) and the flat color or the ripmap coordinates.
+3. **Texel fetch** — straight from the ``(NT, 512, 512)`` atlas in device
+   memory: one load for nearest, four for bilinear, addressed as in
+   ops/texture.py.
 
-1. **Visibility** — closed-form edge functions + running max over 1/z (exactly the
-   reference's ``oneOverZ > depth`` test with 0-cleared depth, render.swift:323-325;
-   strict compare + ascending slot ids preserve earlier-triangle-wins ties).
-2. **Shading** — a second pass over the same binned list, masked to each slot's
-   winning pixels: perspective-correct weights, halfway-vector headlight
-   (render.swift:326-331), flat-color packing — and, for textured winners, the
-   per-pixel ripmap COORDINATES merged into tile-wide planes (winner masks are
-   disjoint). No atlas access happens in this loop.
-3. **Texel fetch** — resolves the merged coordinate planes once per tile:
-   per 8-row pixel strip (single-vreg ops), partitioned per texture block
-   (ranges stay inside one 512-row block), iterating 8-row-aligned atlas
-   blocks with the 8 row resolutions statically unrolled — sublane broadcast +
-   hardware lane gather + masked selects. XLA-level gathers scalarize at ~7.5
-   ns/texel; this path is ~15x faster end to end. Design + measured anatomy +
-   the tried-and-rejected alternatives: docs/KERNEL.md.
-
-The camera-batch axis rides the kernel grid (B, nty, ntx) — a batch renders in
-ONE dispatch (jax cannot vmap a compiled pallas_call), with per-frame tables
-routed by block-granular index maps on the flattened (B*rows, S) SMEM tables.
-
-Memory layout notes (all learned the hard way against the 1 MB SMEM budget):
-per-triangle constants are packed **transposed** as (row, slot) with the slot index
-on the lane axis — SMEM arrays are lane-padded to 128, so (S, k) layouts would
-balloon ~43x. The (ntiles, S) per-tile id lists live in HBM and the kernel DMAs one
-row into SMEM scratch per grid step. Per-tile state stays in vector registers;
-outputs stream to VMEM tiles.
+Setup tables, bin lists and the atlas stay in device memory (L2 keeps the
+hot rows), so any slot count and any texture count render in one launch per
+frame. The camera batch is a grid axis; the band row offset ``y0`` is a
+traced input for the framebuffer-sharded path. The edge and shade math is
+f32 multiply-add with no matrix product.
 """
 
 from __future__ import annotations
 
-import os
 from functools import partial
 from typing import Dict, Tuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..config import DEFAULT_CONFIG, RenderConfig
+from .binning import bin_segments
+from .texture import ATLAS_EDGE
 
-ATLAS_EDGE = 512
+# Pixel tile of one program and the warps that run it, picked on an H100
+# (docs/KERNEL.md). Triton needs power-of-two block shapes.
+TILE_H, TILE_W = 16, 32
+NUM_WARPS = 4
 
-# Row indices of the packed (43, S) float32 table.
-_W00, _DX, _DY, _RVZ = 0, 3, 6, 9          # 3 rows each: barycentric + 1/z
-_CVP, _NP, _ATTRP = 12, 21, 30             # 9 rows each: corner-major premultiplied
-_TPP, _DZV = 39, 41                        # 2 rows each: ripmap level constants
-_F32_ROWS = 43
-# Row indices of the packed (7, S) int32 table. _GID is each slot's GLOBAL
-# setup index — multipass spatial partitioning permutes slots across passes,
-# and cross-pass depth ties must still resolve to the smallest global id
-# (the reference's earlier-triangle-wins order, render.swift:324).
-_XMIN, _XMAX, _YMIN, _YMAX, _TEXBASE, _ISTEX, _GID = 0, 1, 2, 3, 4, 5, 6
-_I32_ROWS = 7
+# Column offsets of the per-slot f32 setup row: barycentric w00/dx/dy, the
+# corners' 1/z, the 1/z-premultiplied camera position, normal and attribute
+# (corner-major, 3 x 3 each) and the ripmap level constants.
+_W00, _DX, _DY, _RVZ = 0, 3, 6, 9
+_CVP, _NP, _ATTRP = 12, 21, 30
+_TPP, _DZV = 39, 41
+_NF = 43
+# Columns of the per-slot int32 row: the clamped integer bbox and the texture
+# index (-1 for a flat-colored slot).
+_XMIN, _XMAX, _YMIN, _YMAX, _TEX = 0, 1, 2, 3, 4
+_NI = 5
+
+# Global slot id written where a pixel has no winner: the identity of the
+# (max 1/z, min id) composite of the triangle-sharded path.
+NO_WINNER = 2 ** 30
+
+
+def kernel_mode(interpret: bool) -> bool:
+    """The one platform dispatch of the pallas backend: returns whether the
+    kernel runs in the Pallas interpreter.
+
+    On ``gpu`` the kernel is always compiled through Triton. On ``cpu`` it
+    runs in the interpreter only when the caller asks for it with
+    ``interpret=True`` (the tests). Anything else raises."""
+    platform = jax.default_backend()
+    if platform == "gpu":
+        return False
+    if platform == "cpu" and interpret:
+        return True
+    raise ValueError(
+        f"backend='pallas' has no compiled kernel for platform {platform!r}; "
+        "it compiles for 'gpu', and runs in the Pallas interpreter on 'cpu' "
+        "only with interpret=True")
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def pack_setup_tables(setup: Dict[str, jnp.ndarray], gids=None):
-    """Pack the setup table into SMEM-friendly (row, slot) arrays.
-
-    ``gids`` are the slots' global setup indices (defaults to arange — the
-    identity for single-pass rendering)."""
-    n = setup["live"].shape[0]
-    if gids is None:
-        gids = jnp.arange(n, dtype=jnp.int32)
+def pack_setup_tables(setup: Dict[str, jnp.ndarray]):
+    """One frame's setup table as row-major (S, 43) f32 and (S, 5) int32."""
     f32 = jnp.concatenate([
-        setup["w00"].T, setup["dx"].T, setup["dy"].T, setup["rvz"].T,
-        setup["cvp"].reshape(-1, 9).T,
-        setup["np"].reshape(-1, 9).T,
-        setup["attrp"].reshape(-1, 9).T,
-        setup["tpp"].T, setup["dzv"].T,
-    ], axis=0).astype(jnp.float32)                       # (43, S)
+        setup["w00"], setup["dx"], setup["dy"], setup["rvz"],
+        setup["cvp"].reshape(-1, 9), setup["np"].reshape(-1, 9),
+        setup["attrp"].reshape(-1, 9), setup["tpp"], setup["dzv"],
+    ], axis=1).astype(jnp.float32)
     i32 = jnp.stack([
         setup["xmin"], setup["xmax"], setup["ymin"], setup["ymax"],
-        jnp.where(setup["is_tex"], setup["tex"] << 18, -1),
-        setup["is_tex"].astype(jnp.int32),
-        jnp.asarray(gids, jnp.int32),
-    ], axis=0).astype(jnp.int32)                          # (7, S)
+        jnp.where(setup["is_tex"], setup["tex"], -1),
+    ], axis=1).astype(jnp.int32)
     return f32, i32
 
 
-def bin_triangles(setup: Dict[str, jnp.ndarray], *, width: int, height: int,
-                  tile_h: int, tile_w: int,
-                  y_offset: jnp.ndarray | int = 0) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Map each live triangle to the framebuffer tiles its bbox touches.
-
-    ``y_offset`` is the first framebuffer row this band covers (nonzero when
-    the framebuffer is row-band-sharded across devices): the setup bboxes are
-    in global rows, the tile grid is band-local, so binning happens on
-    band-relative rows and triangles outside the band drop out entirely.
-
-    Returns (ids (ntiles, S) int32 — touching triangle slots first, ascending;
-    counts (ntiles, 1) int32). Ascending id order preserves the reference's
-    earlier-triangle-wins depth ties.
-    """
-    ntx, nty = _cdiv(width, tile_w), _cdiv(height, tile_h)
-    y0 = jnp.asarray(y_offset, jnp.int32)
-    ymin_rel = setup["ymin"] - y0                               # (S,) band rows
-    ymax_rel = setup["ymax"] - y0
-    txmin = jnp.clip(setup["xmin"] // tile_w, 0, ntx - 1)       # (S,)
-    txmax = jnp.clip(setup["xmax"] // tile_w, 0, ntx - 1)
-    tymin = jnp.clip(ymin_rel // tile_h, 0, nty - 1)
-    tymax = jnp.clip(ymax_rel // tile_h, 0, nty - 1)
-    in_band = (ymax_rel >= 0) & (ymin_rel < height)
-    tx = jnp.arange(ntx, dtype=jnp.int32)
-    ty = jnp.arange(nty, dtype=jnp.int32)
-    touch_x = (tx[None, :] >= txmin[:, None]) & (tx[None, :] <= txmax[:, None])
-    touch_y = (ty[None, :] >= tymin[:, None]) & (ty[None, :] <= tymax[:, None])
-    live = setup["live"] & in_band
-    touch = (touch_y[:, :, None] & touch_x[:, None, :]) & live[:, None, None]
-    touch = touch.reshape(touch.shape[0], nty * ntx).T          # (ntiles, S)
-    s = touch.shape[1]
-    # Stable partition (touching slots first, ascending) via a SINGLE-key
-    # sort: untouched slots get their index + S, so they land after every
-    # touched slot, both groups ascending — identical to the previous stable
-    # argsort of ~touch, but sorting one unique i32 key instead of a
-    # (key, index) comparator tuple halves the XLA sort cost.
-    slot = jnp.arange(s, dtype=jnp.int32)[None, :]
-    keys = jnp.where(touch, slot, slot + s)
-    ids = jnp.sort(keys, axis=1) % s
-    counts = touch.sum(axis=1, dtype=jnp.int32)[:, None]        # (ntiles, 1)
-    return ids, counts
+def _pow2_level(lv):
+    """Ripmap level: clamp to [1, 256], truncate, round up to a power of two
+    (render.swift:95-101)."""
+    i = jnp.clip(lv, 1.0, 256.0).astype(jnp.int32) - 1
+    i = i | (i >> 1)
+    i = i | (i >> 2)
+    i = i | (i >> 4)
+    return i + 1
 
 
-# Bbox cells enumerated per slot by the segmented binner before a slot is
-# routed to the shared broadband list instead (covers up to a 2x4-tile bbox;
-# at 64x128-px tiles that is ~256x512 px — anything larger is "big" and walks
-# every tile's loop exactly like the flat binner would have made it walk most
-# of them anyway). Env-overridable for on-chip A/B probes (read ONCE at module
-# import, like the other S3D_* knobs): smaller K halves the flat sort's entry
-# count but routes 1-row-wider bboxes to the broadband list every tile walks.
-_SEG_K = int(os.environ.get("S3D_SEG_K", "8"))
-if not 2 <= _SEG_K <= 16:
-    raise ValueError(f"S3D_SEG_K={_SEG_K} out of range [2, 16]")
+def _raster_kernel(*, tile_h: int, tile_w: int, ntx: int, nty: int,
+                   slots: int, entries: int, background: int, bilinear: bool,
+                   with_gid: bool):
+    """Kernel factory. Refs hold whole arrays in device memory, flattened;
+    the outputs are this program's (tile_h, tile_w) blocks."""
 
-
-def bin_segments(setup: Dict[str, jnp.ndarray], *, width: int, height: int,
-                 tile_h: int, tile_w: int, y_offset: jnp.ndarray | int = 0):
-    """Segmented binning — the large-scene front-end.
-
-    The flat binner sorts an S-wide key row PER TILE: O(ntiles * S log S)
-    XLA sort work, the dominant frame cost at 10k triangles (2.4 of 7.3 ms
-    @1080p). This binner instead expands each live slot whose bbox covers
-    <= _SEG_K tiles into one (tile, slot) entry per covered cell and sorts
-    ALL entries in ONE K*S-wide single-key sort — O(K*S log KS), ~50x less
-    sort work at 10k triangles — yielding per-tile SEGMENTS (ascending slot
-    within each). Slots covering more tiles (the floor quads) go to one
-    shared ascending "broadband" list every tile walks; the kernel merges
-    both lists with an order-independent depth-tie rule equivalent to the
-    reference's earlier-triangle-wins (see _raster_kernel ``segmented``).
-
-    Entries within a tile (and the broadband list) are PARTITIONED BY
-    MATERIAL — flat-color entries first, textured after — via the sort key
-    (tile, is_tex, slot). The kernel's shade phase then runs one statically
-    specialized unbranched loop per material: a per-entry is_tex branch
-    (pl.when) measured ~1 us per TAKEN branch on-chip — more than the
-    shade math it guarded — so the partition moves the branch out of the
-    kernel entirely. Visibility is material-blind and its depth-tie rule is
-    order-independent, so the reordering cannot change winners.
-
-    Returns (ids_flat (rows, 128) i32 sorted entries' slots, tile-major;
-    counts (ntiles,) i32; ncol (ntiles,) i32 flat-color entry count per
-    tile (a prefix of the segment); starts (ntiles,) i32 entry offsets;
-    bb (bb_rows, 128) i32 broadband slots, color-first then textured, each
-    ascending; bb_cnt () i32; bb_ncol () i32 color prefix length). Rows are
-    padded so the kernel's fixed-size DMA window never reads out of bounds;
-    pad entries decode to slot 0 and are count-guarded.
-    """
-    ntx, nty = _cdiv(width, tile_w), _cdiv(height, tile_h)
-    y0 = jnp.asarray(y_offset, jnp.int32)
-    ymin_rel = setup["ymin"] - y0
-    ymax_rel = setup["ymax"] - y0
-    txmin = jnp.clip(setup["xmin"] // tile_w, 0, ntx - 1)
-    txmax = jnp.clip(setup["xmax"] // tile_w, 0, ntx - 1)
-    tymin = jnp.clip(ymin_rel // tile_h, 0, nty - 1)
-    tymax = jnp.clip(ymax_rel // tile_h, 0, nty - 1)
-    live = setup["live"] & (ymax_rel >= 0) & (ymin_rel < height)
-    s = live.shape[0]
-    wx = txmax - txmin + 1
-    wy = tymax - tymin + 1
-    area = wx * wy
-    small = live & (area <= _SEG_K)
-    big = live & (area > _SEG_K)
-
-    # One sorted (tile, is_tex, slot) entry per covered bbox cell of each
-    # small slot. spow (pow2 >= s) makes the slot decode a cheap mask; the
-    # BIG key parks invalid entries past every real tile and decodes to
-    # slot 0.
-    spow = 1 << max(s - 1, 1).bit_length()
-    is_tex = setup["is_tex"].astype(jnp.int32)
-    big_key = jnp.int32(nty * ntx * 2 * spow)
-    slot = jnp.arange(s, dtype=jnp.int32)
-    mat_slot = is_tex * spow + slot
-    wxf = wx.astype(jnp.float32)
-    keys = []
-    for e in range(_SEG_K):
-        # e // wx via f32 (exact for these tiny ints; no vector int div).
-        dy = jnp.floor(jnp.float32(e) / wxf).astype(jnp.int32)
-        dx = e - dy * wx
-        tile_e = (tymin + dy) * ntx + (txmin + dx)
-        valid = small & (e < area)
-        keys.append(jnp.where(valid, tile_e * 2 * spow + mat_slot, big_key))
-    sorted_keys = jnp.sort(jnp.concatenate(keys))               # (K*S,)
-    ids_flat = sorted_keys & (spow - 1)
-    seg_rows = max(8, _cdiv(_cdiv(s + 130, 128), 8) * 8)        # DMA window
-    rows = _cdiv(ids_flat.shape[0], 128) + seg_rows
-    rows = _cdiv(rows, 8) * 8
-    ids_flat = jnp.pad(ids_flat, (0, rows * 128 - ids_flat.shape[0]),
-                       constant_values=0).reshape(rows, 128)
-
-    # Per-tile entry counts via an MXU one-hot contraction (exact in f32),
-    # row-major cumsum for segment starts; a second contraction over the
-    # color-only rows gives each tile's color prefix length.
-    ty = jnp.arange(nty, dtype=jnp.int32)
-    tx = jnp.arange(ntx, dtype=jnp.int32)
-    touch_y = ((ty[None, :] >= tymin[:, None]) & (ty[None, :] <= tymax[:, None])
-               & small[:, None]).astype(jnp.float32)            # (S, nty)
-    touch_x = ((tx[None, :] >= txmin[:, None])
-               & (tx[None, :] <= txmax[:, None])).astype(jnp.float32)
-    counts = (touch_y.T @ touch_x).reshape(-1).astype(jnp.int32)  # (ntiles,)
-    col_y = touch_y * (1.0 - is_tex.astype(jnp.float32))[:, None]
-    ncol = (col_y.T @ touch_x).reshape(-1).astype(jnp.int32)      # (ntiles,)
-    starts = jnp.concatenate([jnp.zeros(1, jnp.int32),
-                              jnp.cumsum(counts)[:-1]])
-
-    # Broadband: big slots via the same single-key partition, color-first.
-    bb_sorted = jnp.sort(jnp.where(big, mat_slot, 2 * spow + slot))
-    bb_sorted = jnp.where(bb_sorted < 2 * spow, bb_sorted & (spow - 1), 0)
-    bb_rows = max(8, _cdiv(_cdiv(s + 3, 128), 8) * 8)
-    bb = jnp.pad(bb_sorted, (0, bb_rows * 128 - s)).reshape(bb_rows, 128)
-    return (ids_flat, counts, ncol, starts, bb,
-            big.sum(dtype=jnp.int32), (big & ~setup["is_tex"]).sum(
-                dtype=jnp.int32))
-
-
-def _raster_kernel(tile_h: int, tile_w: int, background: int, atlas_rows: int,
-                   bilinear: bool = False, phases: str = "full",
-                   track_ids: bool = False, ids_resident: bool = False,
-                   segmented: bool = False, seg_rows: int = 0,
-                   strip_h: int = 0):
-    """Kernel factory: visibility + in-kernel shading and texture fetch per tile.
-
-    ``phases`` is a timing instrument (tools/perf_probe.py): "vis" stops after
-    visibility, "shade" skips the texel fetch — outputs are then WRONG; only
-    "full" renders correctly. ``track_ids`` adds a third output plane with the
-    winners' GLOBAL setup ids (row _GID) — only needed by spatially-partitioned
-    multipass merges, so single-pass frames don't pay for it. ``ids_resident``
-    switches the per-tile id lists from HBM+DMA-scratch to a fully SMEM-resident
-    (B*ntiles, 128) table — only possible when every tile's list fits one
-    128-lane row and the whole table fits the SMEM budget (small scenes, incl.
-    the reference's 51-triangle default): saves the per-grid-step DMA.
-
-    ``segmented`` consumes bin_segments output (the large-scene front-end):
-    each tile walks (a) the shared SMEM-resident broadband list and (b) its
-    own segment of the flat sorted entry array, DMA'd as a fixed ``seg_rows``
-    x 128 window at the segment's dynamic (unaligned) row offset. The two
-    lists interleave arbitrarily in slot order, so the depth test uses the
-    ORDER-INDEPENDENT form of the reference's rule: strictly greater 1/z
-    wins, equal 1/z resolves to the smaller slot id (exactly sequential
-    strict-> over ascending ids, reassociated; bit-identical winners).
-    counts_ref rows: 0 = segment count, 1 = segment start, 2 = broadband
-    count (same value in every lane).
-
-    (A round-5 ``streamed`` variant — the multipass chunk axis as a dynamic
-    innermost grid dimension, one launch for any scene size — was built,
-    validated bit-exact on chip, measured 2.3x SLOWER than the while_loop
-    multipass, and deleted: per-chunk SMEM table windows re-DMA ~0.5 MB per
-    (tile, chunk) grid step where the launch-per-pass design loads them once
-    per pass, and SMEM DMA bandwidth makes that the dominant frame cost.
-    Chunk-outer orders that would fix the traffic hang Mosaic (dynamic grid
-    bounds must be innermost; non-consecutive output revisits hang the
-    device). Full measurements: docs/KERNEL.md "Round-5".)
-    """
-    assert tile_w == 128 and tile_h % 8 == 0 and 8 <= tile_h <= 256, \
-        "in-kernel texel fetch assumes 128-lane tiles of whole 8-row strips"
-
-    def kernel(counts_ref, trf_ref, tri_ref, y0_ref, ids_in, *rest):
-        if segmented:
-            bb_ref, atlas_ref, *out_and_scratch = rest
-        else:
-            bb_ref = None
-            atlas_ref, *out_and_scratch = rest
-        if ids_resident:
-            if track_ids:
-                pix_ref, ooz_ref, gid_ref = out_and_scratch
-            else:
-                pix_ref, ooz_ref = out_and_scratch
-                gid_ref = None
-        else:
-            if track_ids:
-                (pix_ref, ooz_ref, gid_ref,
-                 ids_ref, ids_sem, *shade_scratch) = out_and_scratch
-            else:
-                (pix_ref, ooz_ref,
-                 ids_ref, ids_sem, *shade_scratch) = out_and_scratch
-                gid_ref = None
-            if segmented:
-                # Strip-scoped shading scratch: the running merged planes of
-                # phase 2 (win survives pix_ref's reuse as the color plane;
-                # inv caches the once-per-tile perspective divide).
-                (win_ref, shade_ref, inv_ref, *plane_refs) = shade_scratch
-        # Grid (B, nty, ntx): the camera-batch axis rides the grid (serving /
-        # multi-view path); per-frame tables are delivered per-b by the block
-        # index maps, so the body below is written for one frame.
+    def kernel(y0_ref, base_ref, bbn_ref, bb_ref, starts_ref, counts_ref,
+               ids_ref, trf_ref, tri_ref, atlas_ref, pix_ref, ooz_ref,
+               *gid_ref):
         b = pl.program_id(0)
         ty = pl.program_id(1)
         tx = pl.program_id(2)
-        nty = pl.num_programs(1)
-        ntx = pl.num_programs(2)
-        tile = ty * ntx + tx
-
-        if ids_resident:
-            # The whole (B*ntiles, 128) id table is SMEM-resident: each tile's
-            # list is one row, indexed directly — no DMA on the grid step.
-            tile_row = b * nty * ntx + tile
-
-            def slot_id(i):
-                return ids_in[tile_row, i]
-        elif segmented:
-            # This tile's segment of the flat sorted entry array: a fixed
-            # seg_rows x 128 SMEM window DMA'd at the segment's dynamic row
-            # offset (unaligned row starts are fine — probed on-chip); the
-            # in-row offset is consumed by the loops below. The copy overlaps
-            # the pixel-coordinate setup.
-            n = counts_ref[0, tile]
-            seg_start = counts_ref[1, tile]
-            bb_n = counts_ref[2, tile]
-            n_col = counts_ref[3, tile]
-            bb_ncol = counts_ref[4, tile]
-            dma = pltpu.make_async_copy(
-                ids_in.at[b, pl.ds(seg_start >> 7, seg_rows)],
-                ids_ref, ids_sem)
-            dma.start()
-            off = seg_start & 127
-        else:
-            # This tile's triangle id list: HBM -> SMEM scratch (the full
-            # (ntiles, S) table is far too large for SMEM residency; one row is
-            # a few hundred bytes). The copy overlaps the pixel-coordinate
-            # setup below.
-            dma = pltpu.make_async_copy(ids_in.at[b * nty * ntx + tile],
-                                        ids_ref, ids_sem)
-            dma.start()
-
-            def slot_id(i):
-                return ids_ref[i >> 7, i & 127]
-
-        row = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 0)
-        col = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 1)
-        pyi = y0_ref[0, 0] + ty * tile_h + row
-        pxi = tx * tile_w + col
+        tile = (b * nty + ty) * ntx + tx
+        y_top = y0_ref[0] + ty * tile_h          # global row of the tile top
+        x_left = tx * tile_w
+        pyi = y_top + jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 0)
+        pxi = x_left + jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 1)
         pyf = pyi.astype(jnp.float32)
         pxf = pxi.astype(jnp.float32)
+        frame = b * slots
 
-        if not segmented:
-            n = counts_ref[0, tile]  # this tile's binned triangle count
-            if not ids_resident:
-                dma.wait()
-        # (segmented: the window DMA overlaps the broadband walk; the wait
-        # sits between the two visibility loops.)
+        def fval(slot, k):
+            return trf_ref[(frame + slot) * _NF + k]
 
-        def weights(s):
-            w0 = trf_ref[_W00 + 0, s] + pxf * trf_ref[_DX + 0, s] + pyf * trf_ref[_DY + 0, s]
-            w1 = trf_ref[_W00 + 1, s] + pxf * trf_ref[_DX + 1, s] + pyf * trf_ref[_DY + 1, s]
-            w2 = trf_ref[_W00 + 2, s] + pxf * trf_ref[_DX + 2, s] + pyf * trf_ref[_DY + 2, s]
-            return w0, w1, w2
+        def ival(slot, k):
+            return tri_ref[(frame + slot) * _NI + k]
 
-        # ---- phase 1: visibility ----
-        def vis_body(s, ok, carry):
-            best, win = carry[0], carry[1]
-            w0, w1, w2 = weights(s)
-            cover = (
-                (w0 >= 0) & (w1 >= 0) & (w2 >= 0)
-                & (pxi >= tri_ref[_XMIN, s]) & (pxi <= tri_ref[_XMAX, s])
-                & (pyi >= tri_ref[_YMIN, s]) & (pyi <= tri_ref[_YMAX, s])
-            )
-            ooz = (w0 * trf_ref[_RVZ + 0, s] + w1 * trf_ref[_RVZ + 1, s]
-                   + w2 * trf_ref[_RVZ + 2, s])
-            # ``ok`` guards the 4-wide unroll's tail: tail positions hold a
-            # real slot index that does NOT touch this tile — usually its
-            # bbox test fails, but a culled (dead) slot's table row could
-            # spuriously pass.
-            ooz = jnp.where(cover & ok, ooz, 0.0)
-            upd = ooz > best  # strict: earlier slot wins depth ties
-            out = (jnp.where(upd, ooz, best), jnp.where(upd, s, win))
-            if track_ids:
-                out += (jnp.where(upd, tri_ref[_GID, s], carry[2]),)
-            return out
+        # ---- visibility ----
+        def visit(slot, carry):
+            best, win = carry
+            w = [fval(slot, _W00 + k) + pxf * fval(slot, _DX + k)
+                 + pyf * fval(slot, _DY + k) for k in range(3)]
+            cover = ((w[0] >= 0) & (w[1] >= 0) & (w[2] >= 0)
+                     & (pxi >= ival(slot, _XMIN)) & (pxi <= ival(slot, _XMAX))
+                     & (pyi >= ival(slot, _YMIN)) & (pyi <= ival(slot, _YMAX)))
+            ooz = (w[0] * fval(slot, _RVZ) + w[1] * fval(slot, _RVZ + 1)
+                   + w[2] * fval(slot, _RVZ + 2))
+            ooz = jnp.where(cover, ooz, 0.0)
+            upd = (ooz > best) | ((ooz == best) & (ooz > 0.0) & (slot < win))
+            return jnp.where(upd, ooz, best), jnp.where(upd, slot, win)
 
-        if segmented:
-            # STRIP-SCOPED visibility: small triangles cover a handful of
-            # 8-row strips of the tile, so evaluating edges over the full
-            # (tile_h, 128) block per entry wastes ~tile_h/bbox_h of the
-            # vector work. Each entry instead loops only the strips its bbox
-            # overlaps (dynamic fori bounds), loading/storing the running
-            # (best, win[, gid]) planes as 8-row dynamic slices of the
-            # OUTPUT refs: ooz_ref holds best, pix_ref holds win until the
-            # shade phase overwrites it — zero extra VMEM.
-            nstr = tile_h // 8
-            y_top = y0_ref[0, 0] + ty * tile_h
-            pyi8 = pyi[:8]          # strip-0 coordinate planes; strip r adds
-            pyf8 = pyf[:8]          # the scalar 8r (pxi/pxf rows repeat)
-            pxi8 = pxi[:8]
-            pxf8 = pxf[:8]
-            zeros8 = jnp.zeros((8, tile_w), jnp.float32)
+        def broadband(i, carry):
+            slot = bb_ref[frame + i]
+            touches = ((ival(slot, _XMAX) >= x_left)
+                       & (ival(slot, _XMIN) < x_left + tile_w)
+                       & (ival(slot, _YMAX) >= y_top)
+                       & (ival(slot, _YMIN) < y_top + tile_h))
+            return jax.lax.cond(touches, partial(visit, slot),
+                                lambda c: c, carry)
 
-            def strip_range(ymn, ymx):
-                """Inclusive 8-row strip span of a bbox row range. Phases 1
-                and 2 must agree bit-exactly (else shading could miss strips
-                visibility wrote), so both call this one helper."""
-                return (jnp.clip((ymn - y_top) >> 3, 0, nstr - 1),
-                        jnp.clip((ymx - y_top) >> 3, 0, nstr - 1))
-            pix_ref[0] = jnp.full((tile_h, tile_w), -1, jnp.int32)
-            ooz_ref[0] = jnp.zeros((tile_h, tile_w), jnp.float32)
-            if track_ids:
-                gid_ref[0] = jnp.full((tile_h, tile_w), -1, jnp.int32)
+        carry = (jnp.zeros((tile_h, tile_w), jnp.float32),
+                 jnp.full((tile_h, tile_w), -1, jnp.int32))
+        carry = jax.lax.fori_loop(0, bbn_ref[b], broadband, carry)
+        start = starts_ref[tile]
+        seg = b * entries + start
+        carry = jax.lax.fori_loop(
+            0, counts_ref[tile],
+            lambda i, c: visit(ids_ref[seg + i], c), carry)
+        best, win = carry
 
-            def vis_entry(s, c):
-                xmn = tri_ref[_XMIN, s]
-                xmx = tri_ref[_XMAX, s]
-                ymn = tri_ref[_YMIN, s]
-                ymx = tri_ref[_YMAX, s]
-                r0, r1 = strip_range(ymn, ymx)
-                cover_x = (pxi8 >= xmn) & (pxi8 <= xmx)
-                # Per-entry invariants hoisted out of the strip loop: the
-                # x-dependent half of each edge function.
-                cx0 = trf_ref[_W00 + 0, s] + pxf8 * trf_ref[_DX + 0, s]
-                cx1 = trf_ref[_W00 + 1, s] + pxf8 * trf_ref[_DX + 1, s]
-                cx2 = trf_ref[_W00 + 2, s] + pxf8 * trf_ref[_DX + 2, s]
-                dy0 = trf_ref[_DY + 0, s]
-                dy1 = trf_ref[_DY + 1, s]
-                dy2 = trf_ref[_DY + 2, s]
-                rv0 = trf_ref[_RVZ + 0, s]
-                rv1 = trf_ref[_RVZ + 1, s]
-                rv2 = trf_ref[_RVZ + 2, s]
-                tid = tri_ref[_GID, s] if track_ids else s
+        # ---- shade: one gather of the winner's setup row per pixel ----
+        has = win >= 0
+        wid = jnp.maximum(win, 0)
+        rowf = (frame + wid) * _NF
+        rowi = (frame + wid) * _NI
 
-                def strip(r, cc):
-                    o = r * 8
-                    pyi_s = pyi8 + o
-                    pyf_s = pyf8 + o.astype(jnp.float32)
-                    w0 = cx0 + pyf_s * dy0
-                    w1 = cx1 + pyf_s * dy1
-                    w2 = cx2 + pyf_s * dy2
-                    cover = (cover_x & (w0 >= 0) & (w1 >= 0) & (w2 >= 0)
-                             & (pyi_s >= ymn) & (pyi_s <= ymx))
-                    ooz = jnp.where(cover, w0 * rv0 + w1 * rv1 + w2 * rv2,
-                                    zeros8)
-                    best8 = ooz_ref[0, pl.ds(o, 8), :]
-                    upd = ooz > best8
-                    # Broadband and segment lists interleave arbitrarily in
-                    # slot order, so depth ties resolve explicitly to the
-                    # smaller id — the order-independent statement of the
-                    # reference's earlier-triangle-wins rule (bit-identical
-                    # winners). Ids compare as the tie-break key: local slot
-                    # ids in sequential multipass (ascending == global
-                    # order), global _GID in spatial multipass.
-                    wid8 = (gid_ref if track_ids else pix_ref)[0, pl.ds(o, 8), :]
-                    upd = upd | ((ooz == best8) & (ooz > 0.0) & (tid < wid8))
-                    ooz_ref[0, pl.ds(o, 8), :] = jnp.where(upd, ooz, best8)
-                    win8 = pix_ref[0, pl.ds(o, 8), :] if track_ids else wid8
-                    pix_ref[0, pl.ds(o, 8), :] = jnp.where(upd, s, win8)
-                    if track_ids:
-                        gid_ref[0, pl.ds(o, 8), :] = jnp.where(upd, tid, wid8)
-                    return cc
+        def g(k):
+            return plgpu.load(trf_ref.at[rowf + k])
 
-                return jax.lax.fori_loop(r0, r1 + 1, strip, c)
+        w = [g(_W00 + k) + pxf * g(_DX + k) + pyf * g(_DY + k)
+             for k in range(3)]
+        wt = [wk / best for wk in w]         # perspective-correct weights
 
-            # Walk the shared broadband list, then this tile's segment; the
-            # tie rule above makes the interleaving order irrelevant.
-            jax.lax.fori_loop(
-                0, bb_n,
-                lambda i, c: vis_entry(bb_ref[i >> 7, i & 127], c), 0)
-            dma.wait()
-            jax.lax.fori_loop(
-                0, n,
-                lambda i, c: vis_entry(
-                    ids_ref[(off + i) >> 7, (off + i) & 127], c), 0)
-            if phases == "vis":  # outputs already hold (win, best)
-                return
-            # (phase 2 below reads win/best directly from the refs.)
+        def interp3(off):
+            return [g(off + c) * wt[0] + g(off + 3 + c) * wt[1]
+                    + g(off + 6 + c) * wt[2] for c in range(3)]
+
+        def normalize(v):
+            r = jax.lax.rsqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+            return [x * r for x in v]
+
+        point = normalize([-x for x in interp3(_CVP)])
+        normal = normalize(interp3(_NP))
+        halfway = normalize([p + n for p, n in zip(point, normal)])
+        shade = (halfway[0] * normal[0] + halfway[1] * normal[1]
+                 + halfway[2] * normal[2])
+        color = interp3(_ATTRP)
+
+        # ---- texel fetch from the atlas in device memory ----
+        tex = plgpu.load(tri_ref.at[rowi + _TEX])
+        textured = has & (tex >= 0)
+        u, v = color[0], color[1]
+        lu = _pow2_level(best / jnp.abs(g(_TPP) - u * g(_DZV)))
+        lv = _pow2_level(best / jnp.abs(g(_TPP + 1) - v * g(_DZV + 1)))
+        offx = 511 & ~(2 * lu - 1)
+        offy = 511 & ~(2 * lv - 1)
+        tex_base = jnp.maximum(tex, 0) * (ATLAS_EDGE * ATLAS_EDGE)
+
+        def fetch(x, y):
+            word = plgpu.load(
+                atlas_ref.at[jnp.where(textured,
+                                       tex_base + y * ATLAS_EDGE + x, 0)],
+                mask=textured, other=0)
+            return [((word >> sh) & 0xFF).astype(jnp.float32)
+                    for sh in (16, 8, 0)]
+
+        if not bilinear:
+            # Reference-exact nearest fetch; the clamp keeps uv < 0 inside
+            # this texture's 512 x 512 block.
+            x = jnp.clip((jnp.fmod(u, 1.0) * lu).astype(jnp.int32) + offx,
+                         0, ATLAS_EDGE - 1)
+            y = jnp.clip((jnp.fmod(v, 1.0) * lv).astype(jnp.int32) + offy,
+                         0, ATLAS_EDGE - 1)
+            texel = fetch(x, y)
         else:
-            neg1 = jnp.full((tile_h, tile_w), -1, jnp.int32)
-            carry0 = (jnp.zeros((tile_h, tile_w), jnp.float32), neg1)
-            if track_ids:
-                carry0 += (neg1,)
+            # Bilinear within the level (framework extension): texel centers
+            # at integer + 0.5, repeat wrap.
+            tu = jnp.mod(u, 1.0) * lu - 0.5
+            tv = jnp.mod(v, 1.0) * lv - 0.5
+            x0 = jnp.floor(tu).astype(jnp.int32)
+            y0 = jnp.floor(tv).astype(jnp.int32)
+            fx = tu - x0.astype(jnp.float32)
+            fy = tv - y0.astype(jnp.float32)
 
-            def vis_flat4(i, carry):
-                # 4-wide unroll: quarters the loop bookkeeping; tail positions
-                # read padded non-touching ids whose coverage is force-masked
-                # by the i < n guard in vis_body.
-                for k in range(4):
-                    ii = 4 * i + k
-                    carry = vis_body(slot_id(ii), ii < n, carry)
-                return carry
+            def wrap(i, lp, off):
+                return jnp.clip(jnp.mod(i, lp) + off, 0, ATLAS_EDGE - 1)
 
-            vis_out = jax.lax.fori_loop(0, (n + 3) >> 2, vis_flat4, carry0)
-            best, win = vis_out[0], vis_out[1]
-            if track_ids:
-                gid_ref[0] = vis_out[2]
+            xa, xb = wrap(x0, lu, offx), wrap(x0 + 1, lu, offx)
+            ya, yb = wrap(y0, lv, offy), wrap(y0 + 1, lv, offy)
+            c00, c10 = fetch(xa, ya), fetch(xb, ya)
+            c01, c11 = fetch(xa, yb), fetch(xb, yb)
+            texel = [(1 - fx) * (1 - fy) * c00[c] + fx * (1 - fy) * c10[c]
+                     + (1 - fx) * fy * c01[c] + fx * fy * c11[c]
+                     for c in range(3)]
+        color = [jnp.where(textured, t, c) for t, c in zip(texel, color)]
 
-            if phases == "vis":  # timing instrument: stop after visibility
-                pix_ref[0] = win
-                ooz_ref[0] = best
-                return
-
-        # ---- phase 2: shade each slot's winning pixels ----
-        def rsqrt3(x, y, z):
-            return jax.lax.rsqrt(x * x + y * y + z * z)
-
-        def pow2_level(lv):
-            i2 = jnp.clip(lv, 1.0, 256.0).astype(jnp.int32) - 1
-            i2 = i2 | (i2 >> 1)
-            i2 = i2 | (i2 >> 2)
-            i2 = i2 | (i2 >> 4)
-            return i2 + 1
-
-        def read_shade_scalars(s):
-            """All SMEM constants one entry's shading needs, read ONCE per
-            entry — the segmented strip loop below must not multiply scalar
-            loads (multiplying them 8x is what sank the rejected round-1
-            strip-wise-shading experiment)."""
-            return (
-                tuple(trf_ref[_W00 + k, s] for k in range(3)),
-                tuple(trf_ref[_DX + k, s] for k in range(3)),
-                tuple(trf_ref[_DY + k, s] for k in range(3)),
-                tuple(trf_ref[_CVP + k, s] for k in range(9)),
-                tuple(trf_ref[_NP + k, s] for k in range(9)),
-                tuple(trf_ref[_ATTRP + k, s] for k in range(9)),
-                (trf_ref[_TPP + 0, s], trf_ref[_TPP + 1, s]),
-                (trf_ref[_DZV + 0, s], trf_ref[_DZV + 1, s]),
-                tri_ref[_ISTEX, s] != 0,
-                tri_ref[_TEXBASE, s] >> 9,  # texture base row (index * 512)
-            )
-
-        def shade_base(sc, pxf_, pyf_, inv_):
-            """The per-pixel shade math BOTH material paths need, on planes of
-            ANY strip height (full tile for the flat path, 8-row strips for
-            the segmented path): barycentric weights, halfway-vector lighting,
-            and the attribute interpolants (colors for flat slots; (u, v)
-            ride the same registers for textured ones). Returns
-            (sh, cr, cg, cb)."""
-            w00s, dxs, dys, cvp, npl, atp = sc[:6]
-            w0 = w00s[0] + pxf_ * dxs[0] + pyf_ * dys[0]
-            w1 = w00s[1] + pxf_ * dxs[1] + pyf_ * dys[1]
-            w2 = w00s[2] + pxf_ * dxs[2] + pyf_ * dys[2]
-            t0, t1, t2 = w0 * inv_, w1 * inv_, w2 * inv_  # w / (1/z)
-
-            def interp3(c):
-                x = c[0] * t0 + c[3] * t1 + c[6] * t2
-                y = c[1] * t0 + c[4] * t1 + c[7] * t2
-                z = c[2] * t0 + c[5] * t1 + c[8] * t2
-                return x, y, z
-
-            # Halfway-vector headlight (render.swift:327-330).
-            px_, py_, pz_ = interp3(cvp)
-            pn = -rsqrt3(px_, py_, pz_)
-            px_, py_, pz_ = px_ * pn, py_ * pn, pz_ * pn
-            nx, ny, nz = interp3(npl)
-            nn = rsqrt3(nx, ny, nz)
-            nx, ny, nz = nx * nn, ny * nn, nz * nn
-            hx, hy, hz = px_ + nx, py_ + ny, pz_ + nz
-            hn = rsqrt3(hx, hy, hz)
-            sh = (hx * nx + hy * ny + hz * nz) * hn
-            cr, cg, cb = interp3(atp)
-            return sh, cr, cg, cb
-
-        def color_pack(sh, cr, cg, cb):
-            """Flat-color path: premultiplied color scaled by the shade
-            factor, packed 0x00RRGGBB. int32 packing (channels are in
-            [0, 255], truncation toward zero matches the reference's UInt8
-            cast, render.swift:84-87)."""
-            return (
-                ((sh * cr).astype(jnp.int32) << 16)
-                | ((sh * cg).astype(jnp.int32) << 8)
-                | (sh * cb).astype(jnp.int32)
-            )
-
-        def tex_coord_planes(sc, u, v, best_):
-            """Texture path: anisotropic ripmap level select
-            (render.swift:94-111) + per-pixel texel coordinates for phase 3.
-            (u, v) is the perspective-correct mapping (the attribute
-            interpolants cr/cg)."""
-            tpp, dzv, _, trow = sc[6:]
-            lvl_u = best_ / jnp.abs(tpp[0] - u * dzv[0])
-            lvl_v = best_ / jnp.abs(tpp[1] - v * dzv[1])
-            lu = pow2_level(lvl_u)
-            lv = pow2_level(lvl_v)
-
-            # In-kernel texel fetch. The ripmap level selection keeps a tile's
-            # texel footprint proportional to its pixel extent (~1 texel/pixel),
-            # so the winning pixels of one triangle touch only a handful of
-            # atlas rows: loop those rows, broadcast each aligned (8, 128)
-            # block row across sublanes with a sublane gather, and resolve the
-            # per-pixel column with a hardware lane gather (tpu.dynamic_gather).
-            # Winner masks are disjoint across triangles, so the float RGB
-            # accumulators are written by exactly one triangle per pixel.
-            if not bilinear:
-                # Reference-exact nearest fetch.
-                tx_ = (jnp.fmod(u, 1.0) * lu).astype(jnp.int32) + (511 & ~(2 * lu - 1))
-                ty_ = (jnp.fmod(v, 1.0) * lv).astype(jnp.int32) + (511 & ~(2 * lv - 1))
-                # Clamp within this texture's 512-row block (negative fmod for
-                # uv < 0 must not read the previous texture), matching the
-                # golden/native backends' [0, 511] clamp.
-                new = (jnp.clip(ty_, 0, 511) + trow, jnp.clip(tx_, 0, 511))
-            else:
-                # Bilinear within the level (framework extension; see
-                # ops/texture.py): texel centers at integer+0.5, repeat wrap.
-                tu = jnp.mod(u, 1.0) * lu - 0.5
-                tv = jnp.mod(v, 1.0) * lv - 0.5
-                xf = jnp.floor(tu).astype(jnp.int32)
-                yf = jnp.floor(tv).astype(jnp.int32)
-                offx = 511 & ~(2 * lu - 1)
-                offy = 511 & ~(2 * lv - 1)
-                new = (
-                    jnp.clip(jnp.mod(yf, lv) + offy + trow, 0, atlas_rows - 1),
-                    jnp.clip(jnp.mod(xf, lu) + offx, 0, 511),
-                    jnp.clip(jnp.mod(yf + 1, lv) + offy + trow, 0, atlas_rows - 1),
-                    jnp.clip(jnp.mod(xf + 1, lu) + offx, 0, 511),
-                    tu - xf,
-                    tv - yf,
-                )
-            return new
-
-        def shade_planes(sc, mask, pxf_, pyf_, inv_, best_):
-            """Both material paths of one entry (the flat path's per-slot
-            body — the segmented path branches on the is_tex scalar instead
-            and runs only the one that applies). Returns (flat-packed color,
-            shade factor, texel coordinate planes, textured-winner mask,
-            is_tex scalar)."""
-            is_tex = sc[8]
-            sh, cr, cg, cb = shade_base(sc, pxf_, pyf_, inv_)
-            packed = color_pack(sh, cr, cg, cb)
-            new = tex_coord_planes(sc, cr, cg, best_)
-            return packed, sh, new, mask & is_tex, is_tex
-
-        zf = jnp.zeros((tile_h, tile_w), jnp.float32)
-        zi = jnp.zeros((tile_h, tile_w), jnp.int32)
-        if segmented:
-            # STRIP-SCOPED shading (phase 1's mirror): each entry shades only
-            # the strips its bbox overlaps. The running merged planes
-            # live in VMEM scratch refs; pix_ref flips from winner ids to
-            # colors here, so the ids are copied to win_ref first. inv_ref
-            # caches the once-per-tile perspective divide (1/0 = inf where no
-            # winner; every read of it is winner-masked downstream).
-            # Shade strip height: the largest multiple-of-8 divisor of
-            # tile_h <= 32 (8-row granularity must subdivide it so the
-            # visibility strip range converts exactly).
-            shs = max(h for h in range(8, min(tile_h, _SHADE_STRIP_MAX) + 1, 8)
-                      if tile_h % h == 0)
-            sps = shs // 8
-            # Fresh iotas, not pyf[:shs] slices: Mosaic rejects multi-sublane
-            # static slices of the tile-height planes in this position.
-            rowS = jax.lax.broadcasted_iota(jnp.int32, (shs, tile_w), 0)
-            colS = jax.lax.broadcasted_iota(jnp.int32, (shs, tile_w), 1)
-            pyfS = (y_top + rowS).astype(jnp.float32)
-            pxfS = (tx * tile_w + colS).astype(jnp.float32)
-            win_ref[...] = pix_ref[0]
-            pix_ref[0] = jnp.full((tile_h, tile_w), jnp.int32(background))
-            shade_ref[...] = zf
-            inv_ref[...] = 1.0 / ooz_ref[0]
-            neg1t = jnp.full((tile_h, tile_w), -1, jnp.int32)
-            plane_init = ((neg1t, zi) if not bilinear
-                          else (neg1t, zi, zi, zi, zf, zf))
-            for _pr, _pv in zip(plane_refs, plane_init):
-                _pr[...] = _pv
-
-            # UNBRANCHED, MATERIAL-SPECIALIZED entry loops. Each entry reads
-            # its scalars and shades its bbox strips directly — losers write
-            # nothing through their all-false winner masks. An earlier design
-            # prescanned the winner plane and branched (pl.when) into the
-            # shade body; on-chip the TAKEN branch measured ~1 us per entry —
-            # several times the strip math it guarded — so entries are
-            # instead partitioned by material in the binner's sort key and
-            # each loop body is statically one material, with no conditional
-            # anywhere. Shade strips are WIDER than the 8-row visibility
-            # strips (shs rows): the phase is bound by per-strip
-            # dynamic-offset loads/stores + loop bookkeeping, not vector
-            # math, so fewer/fatter strips win.
-            def win_mask(sl, s):
-                """This entry's winner mask for one shade strip."""
-                return win_ref[sl, :] == s
-
-            def color_entry(s, c):
-                r0, r1 = strip_range(tri_ref[_YMIN, s], tri_ref[_YMAX, s])
-                sc = read_shade_scalars(s)
-
-                def sstrip(rs, cc):
-                    o = rs * shs
-                    sl = pl.ds(o, shs)
-                    maskS = win_mask(sl, s)
-                    sh, cr, cg, cb = shade_base(
-                        sc, pxfS, pyfS + o.astype(jnp.float32),
-                        inv_ref[sl, :])
-                    pix_ref[0, sl, :] = jnp.where(
-                        maskS, color_pack(sh, cr, cg, cb),
-                        pix_ref[0, sl, :])
-                    return cc
-
-                jax.lax.fori_loop(r0 // sps, r1 // sps + 1, sstrip, 0)
-                return c
-
-            def tex_entry(s, c):
-                r0, r1 = strip_range(tri_ref[_YMIN, s], tri_ref[_YMAX, s])
-                sc = read_shade_scalars(s)
-
-                def sstrip(rs, cc):
-                    o = rs * shs
-                    sl = pl.ds(o, shs)
-                    maskS = win_mask(sl, s)
-                    sh, cr, cg, _ = shade_base(
-                        sc, pxfS, pyfS + o.astype(jnp.float32),
-                        inv_ref[sl, :])
-                    new = tex_coord_planes(sc, cr, cg, ooz_ref[0, sl, :])
-                    shade_ref[sl, :] = jnp.where(maskS, sh, shade_ref[sl, :])
-                    # Winner masks are disjoint across entries, so each
-                    # pixel's texel coordinates are written exactly once.
-                    for pr, nv in zip(plane_refs, new):
-                        pr[sl, :] = jnp.where(maskS, nv, pr[sl, :])
-                    return cc
-
-                jax.lax.fori_loop(r0 // sps, r1 // sps + 1, sstrip, 0)
-                return c
-
-            # Color prefix then textured suffix of each list (the binner
-            # sorts (tile, is_tex, slot)); winner masks are disjoint, so the
-            # walk order is irrelevant to the output.
-            jax.lax.fori_loop(
-                0, bb_ncol,
-                lambda i, c: color_entry(bb_ref[i >> 7, i & 127], c), 0)
-            jax.lax.fori_loop(
-                bb_ncol, bb_n,
-                lambda i, c: tex_entry(bb_ref[i >> 7, i & 127], c), 0)
-            jax.lax.fori_loop(
-                0, n_col,
-                lambda i, c: color_entry(
-                    ids_ref[(off + i) >> 7, (off + i) & 127], c), 0)
-            jax.lax.fori_loop(
-                n_col, n,
-                lambda i, c: tex_entry(
-                    ids_ref[(off + i) >> 7, (off + i) & 127], c), 0)
-
-            pix = pix_ref[0]
-            shade = shade_ref[...]
-            planes = tuple(pr[...] for pr in plane_refs)
-            # Texel row planes are always >= 0 when written (clamped, plus a
-            # nonnegative texture base); -1 init marks untextured pixels.
-            tm = (planes[0] >= 0).astype(jnp.int32)
-        else:
-            # Loop-invariant: the winner depth is fixed after visibility, so
-            # the perspective divide happens once per tile, not per slot.
-            inv = 1.0 / best  # best > 0 wherever any mask holds
-
-            def shade_body(s, carry):
-                mask = win == s
-                # Skip slots that won nothing in this tile (an any-reduce +
-                # branch vs ~60 vector ops of interpolation/lighting): with
-                # overdraw, most binned slots lose everywhere.
-                return jax.lax.cond(jnp.any(mask),
-                                    lambda c: _shade_slot(s, mask, c),
-                                    lambda c: c, carry)
-
-            def _shade_slot(s, mask, carry):
-                pix, shade, planes, tm = carry
-                packed, sh, new, active, is_tex = shade_planes(
-                    read_shade_scalars(s), mask, pxf, pyf, inv, best)
-                pix = jnp.where(mask & ~is_tex, packed, pix)
-                shade = jnp.where(mask, sh, shade)
-                # Merge this slot's texel coordinates into the tile-wide
-                # planes; the actual atlas reads happen ONCE per tile in
-                # phase 3, partitioned per texture block — not per triangle.
-                planes = tuple(jnp.where(active, a, b)
-                               for a, b in zip(new, planes))
-                tm = tm | active.astype(jnp.int32)
-                return pix, shade, planes, tm
-
-            planes0 = (zi, zi) if not bilinear else (zi, zi, zi, zi, zf, zf)
-            shade0 = (jnp.full((tile_h, tile_w), jnp.int32(background)), zf,
-                      planes0, zi)
-            pix, shade, planes, tm = jax.lax.fori_loop(
-                0, n, lambda i, c: shade_body(slot_id(i), c), shade0)
-
-            # The color-path / background merge lands first; the texel fetch
-            # below overwrites the textured winners' pixels when there are any.
-            pix_ref[0] = pix
-            ooz_ref[0] = best
-
-        if phases == "shade":  # timing instrument: stop before the fetch
-            return
-
-        # ---- phase 3: texel fetch, once per tile, partitioned per texture
-        # block. A per-triangle fetch (the previous design) pays one atlas row
-        # loop per binned textured triangle; winners within one tile are
-        # spatially adjacent, so their ripmap rows cluster tightly *within a
-        # texture's 512-row block* — looping the merged per-texture row range
-        # amortizes the block-load/broadcast across all triangles sharing the
-        # texture. (A single un-partitioned union range was measured 30%
-        # slower: it bridges the unrelated row ranges of different textures.
-        # Each ripmap fetch row costs a full tile of vector ops either way —
-        # the win is fewer total row iterations.) The whole phase is skipped
-        # for tiles with no textured winners (background/color-only tiles):
-        # without the gate the per-texture range reductions alone cost ~0.6 us
-        # on every one of the ~1000 4K grid steps.
-        @pl.when(jnp.max(tm) > 0)
-        def _fetch_phase():
-            num_tex = max(atlas_rows // ATLAS_EDGE, 1)
-            # The dominant fetch cost is the per-unrolled-row LANE GATHER,
-            # whose work scales with strip height x atlas rows scanned
-            # (microbenched at ~6 ns/vreg-gather vs ~10 ns for the block load
-            # and ~75 ns/iteration fori bookkeeping). Narrow 8-row strips
-            # minimize gather work (1-vreg gathers, per-sub-strip row ranges
-            # shrink ~2x) and the nearest path below flattens the loop nest so
-            # the extra strips don't multiply fixed costs.
-            explicit = (_NEAREST_STRIP_EXPLICIT if not bilinear
-                        else _FETCH_STRIP_EXPLICIT)
-            if explicit:
-                req = _NEAREST_STRIP_H if not bilinear else _FETCH_STRIP_H
-            elif not bilinear:
-                # Round 5: with the range stats hoisted out of the strip
-                # bodies, 8-row strips (single-vreg planes — gathers, selects
-                # and masks all shrink 3x vs 24-row strips) win at every
-                # measured config: 1080p 0.568 vs 0.615 ms, 4K 2.212 vs
-                # 2.345, stress 10k 3.152 vs 3.321. 8 divides every legal
-                # tile_h, so no legalization case exists.
-                req = 8
-            else:
-                # Bilinear keeps the resolution-adaptive default
-                # (_pick_strip_h), else the measured flat default.
-                req = strip_h or _DEFAULT_STRIP_H
-            # ValueError, not assert: under `python -O` a stripped assert would
-            # silently truncate the strips loop (tile_h // sph) and leave the
-            # tile's bottom rows unfetched.
-            if not (req > 0 and req % 8 == 0):
-                raise ValueError(
-                    f"fetch strip height {req} must be a positive multiple of "
-                    f"8 (check S3D_NEAREST_STRIP_H / S3D_FETCH_STRIP_H)")
-            sph = min(req, tile_h)
-            if tile_h % sph:
-                if explicit:
-                    # An EXPLICIT knob value that doesn't tile the block must
-                    # fail fast, not silently run at a different height (an
-                    # A/B probe would record timings for the wrong config).
-                    raise ValueError(
-                        f"strip height {req} does not divide tile_h={tile_h} "
-                        f"(check S3D_NEAREST_STRIP_H / S3D_FETCH_STRIP_H)")
-                # The shipped default legalizes to the 8-multiple divisor of
-                # tile_h NEAREST the default, preferring the larger on ties
-                # (strips must tile the block exactly): tile_h=120 -> 24, not
-                # 8 — on-chip, 120/sph24 measured 0.686 ms @1080p vs 0.79 for
-                # tile 128/sph16 while 8-row strips pay double per-strip fixed
-                # costs (the round-2 ladder: 8 -> 1.13, 16 -> 1.09 ms).
-                sph = min((d for d in range(8, tile_h + 1, 8)
-                           if tile_h % d == 0),
-                          key=lambda d: (abs(d - req), -d))
-            zf8 = jnp.zeros((sph, tile_w), jnp.float32)
-
-            zi8 = jnp.zeros((sph, tile_w), jnp.int32)
-
-            if not bilinear:
-                # Per-pixel-ROW (sublane) stats hoisted out of the strip
-                # loop: lane-reduction trees cost the same whether run on
-                # the full tile planes once or on each strip's slice, but
-                # hoisting turns every per-strip FULL-PLANE reduction below
-                # (chunk range, activity, row range) into a cheap (sph, 1)
-                # sublane reduce — the round-5 answer to "per-strip fixed
-                # work dominates the 4K fetch" (docs/KERNEL.md).
-                act_t = tm != 0
-                LY0_t, LX0_t = planes
-                rowmin_t = jnp.min(jnp.where(act_t, LY0_t, atlas_rows),
-                                   axis=1, keepdims=True)
-                rowmax_t = jnp.max(jnp.where(act_t, LY0_t, -1),
-                                   axis=1, keepdims=True)
-                ch_tile = LX0_t >> 7
-                chmin_t = jnp.min(jnp.where(act_t, ch_tile, 4),
-                                  axis=1, keepdims=True)
-                chmax_t = jnp.max(jnp.where(act_t, ch_tile, -1),
-                                  axis=1, keepdims=True)
-                stats_t = (rowmin_t, rowmax_t, chmin_t, chmax_t)
-            else:
-                # Bilinear: both sample rows' per-row ranges hoisted (the
-                # strip bodies need all four for the row-constancy test);
-                # chunk stats cover both sample columns.
-                act_t = tm != 0
-                LY0_t, LX0_t, LY1_t, LX1_t = planes[:4]
-                r0min_t = jnp.min(jnp.where(act_t, LY0_t, atlas_rows),
-                                  axis=1, keepdims=True)
-                r0max_t = jnp.max(jnp.where(act_t, LY0_t, -1),
-                                  axis=1, keepdims=True)
-                r1min_t = jnp.min(jnp.where(act_t, LY1_t, atlas_rows),
-                                  axis=1, keepdims=True)
-                r1max_t = jnp.max(jnp.where(act_t, LY1_t, -1),
-                                  axis=1, keepdims=True)
-                chm_t = jnp.minimum(LX0_t >> 7, LX1_t >> 7)
-                chM_t = jnp.maximum(LX0_t >> 7, LX1_t >> 7)
-                chmin_t = jnp.min(jnp.where(act_t, chm_t, 4),
-                                  axis=1, keepdims=True)
-                chmax_t = jnp.max(jnp.where(act_t, chM_t, -1),
-                                  axis=1, keepdims=True)
-                stats_t = (r0min_t, r0max_t, r1min_t, r1max_t,
-                           chmin_t, chmax_t)
-
-            def fetch_strip(strip, stats):
-                """Fetch one pixel strip's texels: (active, coordinate
-                planes) sliced to (sph, tile_w). Nearest accumulates the
-                PACKED texel (one select per row, unpacked once at the end);
-                bilinear accumulates weighted float channels."""
-                active = strip[0] != 0
-                if not bilinear:
-                    _, LY0, LX0 = strip
-                    LYMIN = LYMAX = LY0
-                    ch0, ln0 = LX0 >> 7, LX0 & 127
-                    CHMIN = CHMAX = ch0
-                    # Block-level match key + cached row-bit predicates: the
-                    # previous form compared a fused (row, chunk) key per
-                    # unrolled row (8 compares + 8 masked selects + an OR tree
-                    # per block). Each pixel's target row WITHIN its matching
-                    # block is just LY0 & 7, so a 3-level select tree over
-                    # precomputed bit predicates picks the pixel's own row
-                    # from the 8 gathered values (7 selects), and ONE
-                    # block+chunk compare masks the result — ~37% fewer
-                    # vector ops per block scan, same gathers.
-                    BKEY = jnp.where(active, ((LY0 >> 3) << 2) | ch0, -1)
-                    REL = LY0 & 7
-                    RB0 = (REL & 1) != 0   # strip-invariant: computed once,
-                    RB1 = (REL & 2) != 0   # loop bodies close over them
-                    RB2 = (REL & 4) != 0
-
-                    def block_contrib(b, c):
-                        """Masked texel contribution of one 8-row atlas block
-                        at chunk c: gather all 8 rows at each pixel's lane,
-                        tree-select the pixel's own row (LY0 & 7), mask by the
-                        block+chunk key. Each pixel matches EXACTLY one (b, c)
-                        across the whole scan, so contributions OR together."""
-                        block = atlas_ref[pl.ds(pl.multiple_of(b * 8, 8), 8),
-                                          pl.ds(pl.multiple_of(c * 128, 128), 128)]
-                        g = [jnp.take_along_axis(
-                                jnp.broadcast_to(block[r: r + 1, :],
-                                                 (sph, tile_w)), ln0, axis=1)
-                             for r in range(8)]
-                        s0 = [jnp.where(RB0, g[i + 1], g[i])
-                              for i in (0, 2, 4, 6)]
-                        s1 = [jnp.where(RB1, s0[i + 1], s0[i]) for i in (0, 2)]
-                        sel = jnp.where(RB2, s1[1], s1[0])
-                        return jnp.where(BKEY == ((b << 2) | c), sel, 0)
-
-                    # Flat fast path (the overwhelmingly common strip shape:
-                    # one texture, texel columns within <= 2 lane chunks): a
-                    # SINGLE fori over the strip's row blocks with both chunks
-                    # statically unrolled. Per-texture partitioning and the
-                    # chunk fori only run on the rare general strips — at
-                    # 8-row strips the loop-nest setup would otherwise cost
-                    # more than the gathers (measured: naive sph=8 with the
-                    # full nest was 27% SLOWER than sph=32; flattened it wins).
-                    #
-                    # All range stats come from the HOISTED per-row planes
-                    # (sliced to (sph, 1)): only cheap sublane reduces remain
-                    # per strip. rowmin/rowmax feed the strip-wide ranges AND
-                    # the row-constancy test for the single-gather fast path
-                    # (round 4). When every active pixel of each pixel row
-                    # samples ONE atlas row — floor-like surfaces under an
-                    # upright camera, the dominant texel population — the row
-                    # select-tree can run on block-row BROADCASTS (no per-row
-                    # gather needed) and a single lane gather of the selected
-                    # row replaces all 8: g[s,l] = block[LYrow[s] & 7,
-                    # ln0[s,l]] == the general path's block[LY0[s,l] & 7,
-                    # ln0[s,l]] exactly because LY0[s,:] is constant over
-                    # active lanes; inactive pixels and rows owned by other
-                    # blocks mask out through the same per-pixel BKEY compare
-                    # as the general path.
-                    rowmin, rowmax, chmin_s, chmax_s = stats  # (sph, 1)
-                    cmin_a = jnp.min(chmin_s)
-                    cmax_a = jnp.max(chmax_s)
-                    rmin_a = jnp.min(rowmin)
-                    rmax_a = jnp.max(rowmax)
-                    rowconst = jnp.all((rowmax < 0) | (rowmin == rowmax))
-                    LYr = rowmax  # empty rows (-1) mask out via BKEY
-                    RB0r = (LYr & 1) != 0
-                    RB1r = (LYr & 2) != 0
-                    RB2r = (LYr & 4) != 0
-
-                    def block_contrib_rc(b, c):
-                        """Row-constant contribution: tree-select the block
-                        row per PIXEL ROW from sublane broadcasts, then ONE
-                        lane gather. 1 gather + 7 selects vs the general
-                        body's 8 gathers + 7 selects."""
-                        block = atlas_ref[pl.ds(pl.multiple_of(b * 8, 8), 8),
-                                          pl.ds(pl.multiple_of(c * 128, 128), 128)]
-                        rows = [jnp.broadcast_to(block[r: r + 1, :],
-                                                 (sph, tile_w))
-                                for r in range(8)]
-                        s0 = [jnp.where(RB0r, rows[i + 1], rows[i])
-                              for i in (0, 2, 4, 6)]
-                        s1 = [jnp.where(RB1r, s0[i + 1], s0[i]) for i in (0, 2)]
-                        W = jnp.where(RB2r, s1[1], s1[0])
-                        g = jnp.take_along_axis(W, ln0, axis=1)
-                        return jnp.where(BKEY == ((b << 2) | c), g, 0)
-                    # Midpoint split of the row range: the fmod wrap + level
-                    # offsets can put a strip's touched rows in two clusters
-                    # at the ENDS of a level block (range scans walk up to 30
-                    # dead blocks; fetch_shape_analysis models 32-35% of all
-                    # block iterations as dead). Scanning [rmin, max-below-mid]
-                    # then [min-at-or-above-mid, rmax] skips the dead middle
-                    # for two extra per-strip reductions and NO per-block
-                    # serial dependency (the min-reduce-per-block variant lost
-                    # its savings to exactly that serialization). The two
-                    # full-plane masked reductions are the strip's most
-                    # expensive fixed cost, and a span under 4 blocks has no
-                    # middle worth skipping — narrow strips (the common case)
-                    # take rlo_max = rmax_a instead, which makes the first
-                    # scan cover the whole range and the second scan 0-trip.
-                    def _split_bounds(_):
-                        mid_a = (rmin_a + rmax_a + 1) >> 1
-                        rlo = jnp.max(jnp.where(active & (LY0 < mid_a),
-                                                LY0, -1))
-                        rhi = jnp.min(jnp.where(active & (LY0 >= mid_a),
-                                                LY0, atlas_rows))
-                        return rlo, rhi
-
-                    rlo_max, rhi_min = jax.lax.cond(
-                        (rmax_a >> 3) - (rmin_a >> 3) >= 4, _split_bounds,
-                        lambda _: (rmax_a, atlas_rows), 0)
-
-                    def _fast_scan(body, gp):
-                        # 2-wide manual unroll: the ~75 ns/iteration fori
-                        # bookkeeping is on par with the 8-row gather work
-                        # itself (lax's unroll= needs static bounds). The odd
-                        # tail clamps to the last block — contributions OR, so
-                        # re-processing a block is idempotent.
-                        def scan_range(lo, hi_incl, gp):
-                            def body2(p, gp):
-                                b = lo + 2 * p
-                                gp = body(b, gp)
-                                return body(jnp.minimum(b + 1, hi_incl), gp)
-                            return jax.lax.fori_loop(
-                                0, (hi_incl - lo + 2) >> 1, body2, gp)
-                        gp = scan_range(rmin_a >> 3, rlo_max >> 3, gp)
-                        return scan_range(
-                            jnp.maximum(rhi_min >> 3, (rlo_max >> 3) + 1),
-                            rmax_a >> 3, gp)
-
-                    # Half of all strips touch texel columns within ONE lane
-                    # chunk (hist at 1080p: {1: 208, 2: 184, 3: 14}); the
-                    # 2-chunk unroll would gather that chunk twice, so a
-                    # strip-level cond picks the single-chunk body instead.
-                    # A second strip-level cond picks the row-constant
-                    # single-gather contribution when it applies (see the
-                    # rowconst notes above).
-                    def make_fast(contrib):
-                        def fast1(acc):
-                            def body(b, gp):
-                                return gp | contrib(b, cmin_a)
-                            return (_fast_scan(body, acc[0]),)
-
-                        def fast2(acc):
-                            def body(b, gp):
-                                return (gp | contrib(b, cmin_a)
-                                        | contrib(b, cmin_a + 1))
-                            return (_fast_scan(body, acc[0]),)
-
-                        return lambda acc: jax.lax.cond(
-                            cmax_a > cmin_a, fast2, fast1, acc)
-
-                    fast_gen = make_fast(block_contrib)
-                    fast_rc = make_fast(block_contrib_rc)
-
-                    if _ROWCONST_FAST:
-                        def fast(acc):
-                            return jax.lax.cond(rowconst, fast_rc, fast_gen,
-                                                acc)
-                    else:   # A/B probe knob: general body only
-                        fast = fast_gen
-                else:
-                    _, LY0, LX0, LY1, LX1, WX, WY = strip
-                    LYMIN, LYMAX = jnp.minimum(LY0, LY1), jnp.maximum(LY0, LY1)
-                    ch0, ln0 = LX0 >> 7, LX0 & 127
-                    ch1, ln1 = LX1 >> 7, LX1 & 127
-                    CHMIN, CHMAX = jnp.minimum(ch0, ch1), jnp.maximum(ch0, ch1)
-                    # Bilinear row-constancy (round 4): BOTH sample rows must
-                    # be constant over each pixel row's active lanes; then two
-                    # broadcast select-trees + FOUR lane gathers replace the
-                    # 16 per-row gathers per block-chunk (see the nearest
-                    # rowconst notes above). All ranges come pre-reduced from
-                    # the hoisted per-row planes.
-                    r0min, r0max, r1min, r1max, chmin_s, chmax_s = stats
-                    rmin_a = jnp.minimum(jnp.min(r0min), jnp.min(r1min))
-                    rmax_a = jnp.maximum(jnp.max(r0max), jnp.max(r1max))
-                    cmin_a = jnp.min(chmin_s)
-                    cmax_a = jnp.max(chmax_s)
-                    rowconst = jnp.all(
-                        ((r0max < 0) | (r0min == r0max))
-                        & ((r1max < 0) | (r1min == r1max)))
-                    RB0a = (r0max & 1) != 0
-                    RB1a = (r0max & 2) != 0
-                    RB2a = (r0max & 4) != 0
-                    RB0b = (r1max & 1) != 0
-                    RB1b = (r1max & 2) != 0
-                    RB2b = (r1max & 4) != 0
-
-                # Both bilinear rows share the texture block (wrap stays
-                # inside the level block), so LY0's block identifies the
-                # texture. Most strips sample a single texture: bound the
-                # texture loop by the strip's [min, max] block ids instead of
-                # scanning all atlas textures. Nearest derives them from the
-                # row reductions already computed (>>9 is monotonic, so
-                # min/max commute with it; empty strips keep the same
-                # sentinels: atlas_rows>>9 == num_tex, -1>>9 == -1) — two
-                # fewer full-plane reductions per strip.
-                TB = LY0 >> 9
-                if not bilinear:
-                    tmin, tmax = rmin_a >> 9, rmax_a >> 9
-                else:
-                    # LY0's block identifies the texture (both sample rows
-                    # wrap inside the level block), so the hoisted LY0 range
-                    # bounds the texture loop (>>9 is monotonic; empty strips
-                    # keep the sentinels: atlas_rows>>9 == num_tex, -1>>9 ==
-                    # -1) — two fewer full-plane reductions per strip.
-                    tmin = jnp.min(r0min) >> 9
-                    tmax = jnp.max(r0max) >> 9
-
-                def fetch_tex(t, acc, rc=False, bounds=None):
-                    sel_t = active & (TB == t)
-                    if bounds is None:
-                        rmin = jnp.min(jnp.where(sel_t, LYMIN, atlas_rows))
-                        rmax = jnp.max(jnp.where(sel_t, LYMAX, -1))
-                        cmin = jnp.min(jnp.where(sel_t, CHMIN, 4))
-                        cmax = jnp.max(jnp.where(sel_t, CHMAX, -1))
-                    else:
-                        # Single-texture strip (tmin == tmax): sel_t covers
-                        # every active pixel, so the strip-wide hoisted
-                        # ranges ARE this texture's ranges — no masked
-                        # full-plane reductions at all.
-                        rmin, rmax, cmin, cmax = bounds
-                    # Midpoint split of the row range (see the flat fast path):
-                    # skips the dead middle blocks of wrap-cluster strips. The
-                    # below/above bounds cover BOTH bilinear sample rows; the
-                    # second scan starts past the first's last block, so no
-                    # block is visited twice (bilinear contributions ADD — a
-                    # revisit would double them).
-                    # The masked reductions only run on strips whose span has
-                    # a middle worth skipping (>= 4 blocks); narrow strips
-                    # scan [rmin, rmax] whole (below = rmax makes the second
-                    # loop 0-trip) and save the fixed cost.
-                    def _split_bounds_tex(_):
-                        mid = (rmin + rmax + 1) >> 1
-                        below = jnp.max(jnp.where(sel_t & (LYMAX < mid),
-                                                  LYMAX, -1))
-                        if bilinear:
-                            below = jnp.maximum(below, jnp.max(
-                                jnp.where(sel_t & (LYMIN < mid), LYMIN, -1)))
-                        above = jnp.min(jnp.where(sel_t & (LYMIN >= mid),
-                                                  LYMIN, atlas_rows))
-                        if bilinear:
-                            above = jnp.minimum(above, jnp.min(
-                                jnp.where(sel_t & (LYMAX >= mid), LYMAX,
-                                          atlas_rows)))
-                        return below, above
-
-                    below, above = jax.lax.cond(
-                        (rmax >> 3) - (rmin >> 3) >= 4, _split_bounds_tex,
-                        lambda _: (rmax, atlas_rows), 0)
-
-                    # The loop iterates 8-row-aligned atlas BLOCKS, not rows:
-                    # the dominant per-iteration cost is fixed (block load +
-                    # loop bookkeeping), so one load serves 8 statically-
-                    # unrolled row resolutions whose selects are single-vreg
-                    # (8, 128) ops. Rows the strip doesn't touch match no
-                    # pixels (LY0 == y is exact, absolute rows include the
-                    # texture base) — unrolled wasted rows are a few cheap
-                    # vector ops. (Software-pipelining the block load through
-                    # the fori carry was measured 7% SLOWER at 1080p: the
-                    # loop-carried vreg costs more than the load latency it
-                    # hides.)
-                    def block_body(b, acc):
-                        def chunk_body(c, acc):
-                            if not bilinear:
-                                # Same tree-select contribution as the fast
-                                # path (BKEY covers absolute rows incl. the
-                                # texture base, so it is texture-agnostic).
-                                return (acc[0] | block_contrib(b, c),)
-                            ar, ag, ab = acc
-                            block = atlas_ref[pl.ds(pl.multiple_of(b * 8, 8), 8),
-                                              pl.ds(pl.multiple_of(c * 128, 128), 128)]
-                            xw0 = jnp.where(ch0 == c, 1.0 - WX, 0.0)
-                            xw1 = jnp.where(ch1 == c, WX, 0.0)
-                            if rc:
-                                # Row-constant body: tree-select each SAMPLE's
-                                # block row from sublane broadcasts, then four
-                                # lane gathers (one per sample corner). Sample
-                                # masks compare the pixel's own row's BLOCK —
-                                # equal to its full row under the constancy
-                                # predicate; wrap may put the two samples in
-                                # different blocks, each masks independently.
-                                rows = [jnp.broadcast_to(
-                                            block[r: r + 1, :], (sph, tile_w))
-                                        for r in range(8)]
-
-                                def tree_sel(b0, b1, b2):
-                                    s0 = [jnp.where(b0, rows[i + 1], rows[i])
-                                          for i in (0, 2, 4, 6)]
-                                    s1 = [jnp.where(b1, s0[i + 1], s0[i])
-                                          for i in (0, 2)]
-                                    return jnp.where(b2, s1[1], s1[0])
-
-                                W0 = tree_sel(RB0a, RB1a, RB2a)
-                                W1 = tree_sel(RB0b, RB1b, RB2b)
-                                g00 = jnp.take_along_axis(W0, ln0, axis=1)
-                                g01 = jnp.take_along_axis(W0, ln1, axis=1)
-                                g10 = jnp.take_along_axis(W1, ln0, axis=1)
-                                g11 = jnp.take_along_axis(W1, ln1, axis=1)
-                                yw0 = jnp.where(active & ((LY0 >> 3) == b),
-                                                1.0 - WY, 0.0)
-                                yw1 = jnp.where(active & ((LY1 >> 3) == b),
-                                                WY, 0.0)
-
-                                def chan(sh, msk):
-                                    return (
-                                        yw0 * (xw0 * ((g00 >> sh) & msk)
-                                               + xw1 * ((g01 >> sh) & msk))
-                                        + yw1 * (xw0 * ((g10 >> sh) & msk)
-                                                 + xw1 * ((g11 >> sh) & msk)))
-
-                                return (ar + chan(16, 0xFF),
-                                        ag + chan(8, 0xFF),
-                                        ab + chan(0, 0xFF))
-                            # Each pixel's (row, chunk) pair matches EXACTLY
-                            # one unrolled row across the whole scan, so rows
-                            # contribute independent weighted values added as
-                            # a TREE — not a serial chain through the
-                            # accumulator. Breaking that 8-deep gather->select
-                            # dependency chain is what lets the VPU pipeline
-                            # the rows.
-                            contribs = []
-                            for r in range(8):
-                                y = b * 8 + r
-                                rowb = jnp.broadcast_to(block[r: r + 1, :],
-                                                        (sph, tile_w))
-                                yw = (jnp.where(active & (LY0 == y), 1.0 - WY, 0.0)
-                                      + jnp.where(active & (LY1 == y), WY, 0.0))
-                                g0 = jnp.take_along_axis(rowb, ln0, axis=1)
-                                g1 = jnp.take_along_axis(rowb, ln1, axis=1)
-                                r_ = xw0 * ((g0 >> 16) & 0xFF) + xw1 * ((g1 >> 16) & 0xFF)
-                                g_ = xw0 * ((g0 >> 8) & 0xFF) + xw1 * ((g1 >> 8) & 0xFF)
-                                b_ = xw0 * (g0 & 0xFF) + xw1 * (g1 & 0xFF)
-                                contribs.append((yw * r_, yw * g_, yw * b_))
-
-                            def tree(vals, op):
-                                while len(vals) > 1:
-                                    vals = [op(vals[i], vals[i + 1]) if i + 1 < len(vals)
-                                            else vals[i] for i in range(0, len(vals), 2)]
-                                return vals[0]
-
-                            ar = ar + tree([ct[0] for ct in contribs], jnp.add)
-                            ag = ag + tree([ct[1] for ct in contribs], jnp.add)
-                            ab = ab + tree([ct[2] for ct in contribs], jnp.add)
-                            return (ar, ag, ab)
-
-                        # (A per-block "any pixel needs this block" cond was
-                        # measured 5-25% SLOWER across configs: touched row
-                        # ranges are dense in practice — even the shallow-angle
-                        # aniso case — so the any-reduce+branch per block never
-                        # pays for itself.)
-                        return jax.lax.fori_loop(cmin, cmax + 1, chunk_body, acc)
-
-                    acc = jax.lax.fori_loop(rmin >> 3, (below >> 3) + 1,
-                                            block_body, acc)
-                    return jax.lax.fori_loop(
-                        jnp.maximum(above >> 3, (below >> 3) + 1),
-                        (rmax >> 3) + 1, block_body, acc)
-
-                acc0 = (zf8, zf8, zf8) if bilinear else (zi8,)
-                # Single-texture strips (the overwhelming majority) pass the
-                # hoisted strip-wide ranges straight into fetch_tex; only
-                # multi-texture strips run the per-texture masked reductions.
-                strip_bounds = (rmin_a, rmax_a, cmin_a, cmax_a)
-
-                def _tex_scan(rc):
-                    def scan(acc):
-                        return jax.lax.cond(
-                            tmax > tmin,
-                            lambda a: jax.lax.fori_loop(
-                                tmin, tmax + 1, partial(fetch_tex, rc=rc), a),
-                            lambda a: fetch_tex(tmin, a, rc=rc,
-                                                bounds=strip_bounds),
-                            acc)
-                    return scan
-
-                if bilinear:
-                    if not _ROWCONST_FAST:
-                        return _tex_scan(False)(acc0)
-                    return jax.lax.cond(rowconst, _tex_scan(True),
-                                        _tex_scan(False), acc0)
-                # Nearest: dispatch to the flat fast path unless the strip
-                # spans multiple textures or more than two lane chunks. A
-                # strip with no textured winners (rmax_a < 0, a free check on
-                # the hoisted stats) skips even the key/predicate setup —
-                # horizon-boundary tiles at 4K have several dead strips.
-                def _active_strip(acc):
-                    return jax.lax.cond(
-                        (tmax > tmin) | (cmax_a - cmin_a > 1),
-                        _tex_scan(False), fast, acc)
-
-                return jax.lax.cond(rmax_a >= 0, _active_strip,
-                                    lambda acc: acc, acc0)
-
-            # The fetch runs per 8-row pixel STRIP (one vreg), not per full
-            # tile: an atlas-row iteration's masked selects cost O(strip)
-            # instead of O(tile), and a strip's winners touch ~8 atlas rows,
-            # so total fetch work is ~linear in tile pixels instead of
-            # ~tile_h x tile rows. (This is NOT the rejected "strip-wise
-            # shading" experiment — that one re-ran the per-triangle SMEM
-            # scalar loops 8x; here the strips slice the already-merged
-            # coordinate planes and no per-triangle work repeats.) The strip
-            # is skipped entirely when it has no textured winners.
-            strips = []
-            empty = (zf8, zf8, zf8) if bilinear else (zi8,)
-            for si in range(tile_h // sph):
-                sl = slice(si * sph, si * sph + sph)
-                strip = tuple(p[sl] for p in (tm,) + planes)
-                stats = tuple(s[sl] for s in stats_t)
-
-                def run(strip=strip, stats=stats):
-                    return fetch_strip(strip, stats)
-
-                if bilinear:
-                    # Dead-strip check on the hoisted (sph, 1) row stats —
-                    # no full-plane reduce.
-                    strips.append(jax.lax.cond(
-                        jnp.max(stats[1]) >= 0, run, lambda: empty))
-                else:
-                    # Dead strips short-circuit inside fetch_strip on the
-                    # hoisted rmax_a scalar (no per-strip reduce needed).
-                    strips.append(run())
-
-            if bilinear:
-                ar = jnp.concatenate([s[0] for s in strips], axis=0)
-                ag = jnp.concatenate([s[1] for s in strips], axis=0)
-                ab = jnp.concatenate([s[2] for s in strips], axis=0)
-            else:
-                gp = jnp.concatenate([s[0] for s in strips], axis=0)
-                ar = ((gp >> 16) & 0xFF).astype(jnp.float32)
-                ag = ((gp >> 8) & 0xFF).astype(jnp.float32)
-                ab = (gp & 0xFF).astype(jnp.float32)
-
-            # Shade-multiply fetched texels (render.swift:330) and merge.
-            tex_pix = (
-                ((shade * ar).astype(jnp.int32) << 16)
-                | ((shade * ag).astype(jnp.int32) << 8)
-                | (shade * ab).astype(jnp.int32)
-            )
-            pix_ref[0] = jnp.where(tm != 0, tex_pix, pix)
+        # Channels are in [0, 255]; truncation matches the reference's UInt8
+        # cast (render.swift:84-87).
+        packed = (((shade * color[0]).astype(jnp.int32) << 16)
+                  | ((shade * color[1]).astype(jnp.int32) << 8)
+                  | (shade * color[2]).astype(jnp.int32))
+        pix_ref[...] = jnp.where(has, packed, jnp.int32(background))
+        ooz_ref[...] = best
+        if with_gid:
+            gid_ref[0][...] = jnp.where(has, win + base_ref[0],
+                                        jnp.int32(NO_WINNER))
 
     return kernel
 
 
-# The SMEM-resident per-triangle tables bound one pass to ~2048 slots (1 MB
-# SMEM: 48-row f32 + 8-row i32 tables at 4 B/lane, plus counts and scratch).
-# Larger scenes render in multiple passes merged by depth below.
-MAX_SLOTS_PER_PASS = 2048
+def rasterize(setup: Dict[str, jnp.ndarray], textures: jnp.ndarray, *,
+              width: int, height: int, background: int,
+              sampling: str = "nearest", y_offset=0, gid_base=None,
+              interpret: bool = False):
+    """Rasterize a batch of setup tables in ONE kernel launch.
 
-# Single-frame passes can double the cap: B=1 SMEM tables are full-resident
-# (no per-b window double-buffering), so a 4096-slot table (~940 KB with
-# counts + scratch) still fits the 1 MB SMEM. Validated on-chip.
-MAX_SLOTS_PER_PASS_B1 = 4096
-
-# NOTE: the S3D_*_STRIP_H / S3D_FORCE_SEGMENTED env knobs below are read
-# ONCE at module import —
-# setting them afterwards (e.g. from a notebook or a test) has no effect.
-# They exist for on-chip A/B probes launched as fresh processes.
-
-# Pixel-strip height of the BILINEAR fetch phase (multiple of 8; <= tile_h).
-# Re-measured on-chip after the round-2 midpoint-split rework (config 2,
-# 100-frame flight): 8 -> ~0.86 ms, 16 -> ~0.81, 32 -> ~0.84 — 16 balances
-# per-strip fixed costs against row-range unions, mirroring the nearest path.
-_DEFAULT_STRIP_H = 16  # un-overridden knobs legalize at non-pow2 tile heights
-# NOTE: the S3D_*_STRIP_H / S3D_FORCE_SEGMENTED knobs are bound ONCE at module
-# import — set them in the environment before importing this module; mutating
-# os.environ afterwards has no effect (they exist for on-chip A/B probe runs,
-# which launch fresh processes anyway).
-_FETCH_STRIP_H = int(os.environ.get("S3D_FETCH_STRIP_H", "16"))
-_FETCH_STRIP_EXPLICIT = "S3D_FETCH_STRIP_H" in os.environ
-
-# Strip height of the NEAREST path's flattened fast-path fetch (the bilinear
-# path keeps _FETCH_STRIP_H). Measured on-chip at tile_h=128, 100-frame
-# flight: 8 -> 1.13 ms, 16 -> 1.09, 32 -> 1.26 @1080p; 8 -> 3.56, 16 -> 3.28
-# @4K (16 halves the per-strip fixed costs; 32's wider row-range unions and
-# 4-vreg gathers overshoot). Overridable for on-chip A/B probes.
-_NEAREST_STRIP_H = int(os.environ.get("S3D_NEAREST_STRIP_H", "16"))
-_NEAREST_STRIP_EXPLICIT = "S3D_NEAREST_STRIP_H" in os.environ
-
-
-def _pick_strip_h(height: int) -> int:
-    """Resolution-adaptive BILINEAR fetch strip height (0 = flat default).
-
-    Round 5: the NEAREST path no longer consults this — with the hoisted
-    range stats, 8-row strips measured fastest at every config and 8 divides
-    every legal tile_h, so the nearest default is a constant (see the kernel
-    fetch phase). This rule now only governs the bilinear path.
-
-    Re-measured on-chip after the round-3/4 strip-scoped + rowconst reworks
-    (bench.py 20-frame scans, default scene): at 4K the round-2 ladder
-    inverted — fatter strips halve the per-strip fixed costs and the
-    row-range unions stay cheap at 4K's shallow texel gradients. With the
-    round-4 tile_h=216 exact-fit default (2160 = 10×216) the sweep measured
-    sph24 2.41 ms vs sph72 3.10; under a tile_h=128 override 24 legalizes to
-    32 (2.47-2.54) vs legalized-16 2.65 and 64 2.95. 1080p keeps the round-3
-    optimum (tile120/sph24 0.62 ms; 40-row strips measure 0.74, tile128/sph32
-    0.82). The explicit S3D_*_STRIP_H knobs always win over this rule (A/B
-    probes)."""
-    return 24 if height >= 2160 else 0
-
-# On-chip A/B probe knob: force small scenes through the segmented front-end
-# (strip-scoped kernel) instead of the SMEM-resident flat path.
-_FORCE_SEGMENTED = os.environ.get("S3D_FORCE_SEGMENTED", "") == "1"
-
-# Round-4 row-constant single-gather fetch fast path (on by default;
-# S3D_ROWCONST=0 is the A/B probe's off switch).
-_ROWCONST_FAST = os.environ.get("S3D_ROWCONST", "1") == "1"
-
-# Cap on the segmented SHADE phase's strip height (A/B probe knob; the shade
-# strips are the largest multiple-of-8 divisor of tile_h <= this cap).
-_SHADE_STRIP_MAX = int(os.environ.get("S3D_SHADE_STRIP_MAX", "32"))
-
-# VMEM budget for the resident texture atlas (1 MB per 512x512 texture).
-# Probed on-chip (tools; 2026-08-16): a 96 MB atlas compiles and renders
-# correctly on v5e, so the round-1 12 MB bound was ~8x too conservative.
-# 96 MB (96 textures) is the validated ceiling; scenes beyond it render in
-# texture PAGES (_rasterize_texture_paged) — one kernel pass per 96-texture
-# page, merged by (depth, global slot id).
-ATLAS_VMEM_BUDGET = 96 * 1024 * 1024
-
-# Textures per VMEM-resident atlas page (512x512 RGBA-word = 1 MB each).
-MAX_ATLAS_TEXTURES = ATLAS_VMEM_BUDGET // (512 * 512 * 4)
-
-
-def _rasterize_chunk(
-    setup: Dict[str, jnp.ndarray],
-    textures: jnp.ndarray,
-    *,
-    width: int,
-    height: int,
-    background: int,
-    tile_h: int,
-    tile_w: int,
-    y_offset,
-    interpret: bool,
-    sampling: str,
-    phases: str = "full",
-    gids: jnp.ndarray | None = None,   # (S,) global ids (enables id tracking)
-    strip_h: int = 0,                  # adaptive fetch-strip default (0 = flat)
-) -> Tuple[jnp.ndarray, ...]:
-    """One kernel pass over <= MAX_SLOTS_PER_PASS setup slots.
-
-    ``setup`` arrays carry a leading camera-batch axis B (B=1 for a single
-    frame); the kernel grid is (B, nty, ntx) and per-frame tables are routed by
-    block index maps — the batch costs no extra compilation or vmap tricks.
-    Returns (pixels (B, H, W) uint32, depth (B, H, W) f32).
+    ``setup`` arrays carry a leading camera-batch axis B. Returns pixels
+    (B, H, W) uint32 and depth (B, H, W) f32 — rows ``y_offset ..
+    y_offset + height`` of each frame — plus, when ``gid_base`` is given,
+    each pixel's winning global slot id ``gid_base + slot`` (``NO_WINNER``
+    where there is none). ``interpret`` is the value from ``kernel_mode``.
     """
+    tile_h, tile_w = TILE_H, TILE_W
     bsz, s = setup["live"].shape
     ntx, nty = _cdiv(width, tile_w), _cdiv(height, tile_h)
-    # Small scenes (every tile's id list fits one 128-lane row AND the whole
-    # (B*ntiles, 128) table fits a fraction of SMEM) bin flat and keep the
-    # table fully SMEM-resident — no per-grid-step DMA. Larger scenes use the
-    # SEGMENTED front-end (bin_segments): one flat K*S-entry sort instead of
-    # ntiles S-wide sorts, per-tile windows DMA'd at dynamic row offsets.
-    ids_resident = ((s + 3 <= 128) and (bsz * nty * ntx <= 512)
-                    and not _FORCE_SEGMENTED)
-    if ids_resident:
-        ids, counts = jax.vmap(partial(
-            bin_triangles, width=width, height=height,
-            tile_h=tile_h, tile_w=tile_w, y_offset=y_offset))(setup)
-        # +3 margin headroom: the 4-wide visibility unroll may read up to
-        # position n+2 (guarded inactive), which must stay inside the padded
-        # 128-lane row even when every slot touches one tile.
-        rows = bsz * nty * ntx
-        rpad = _cdiv(rows, 8) * 8
-        ids = jnp.pad(ids, ((0, 0), (0, 0), (0, 128 - s))).reshape(-1, 128)
-        ids = jnp.pad(ids, ((0, rpad - rows), (0, 0)))
-        seg_rows = 0
-    else:
-        ids, counts, ncol, starts, bb, bb_cnt, bb_ncol = jax.vmap(partial(
-            bin_segments, width=width, height=height,
-            tile_h=tile_h, tile_w=tile_w, y_offset=y_offset))(setup)
-        # Static DMA window covering the in-row offset (<= 127) + the
-        # worst-case segment length (must match bin_segments' pad; the +130
-        # keeps 3 rows of legacy headroom from the removed 4-wide unroll —
-        # harmless, and shrinking it must happen at BOTH sites).
-        seg_rows = max(8, _cdiv(_cdiv(s + 130, 128), 8) * 8)
-        bb_rows = bb.shape[1]
-        bb = bb.reshape(bsz * bb_rows, 128)
-    track_ids = gids is not None
-    y0 = jnp.asarray(y_offset, jnp.int32).reshape(1, 1)
-    if track_ids and gids.ndim == 2:
-        # Per-frame global ids (the compacted sharded path permutes slots
-        # independently per frame).
-        trf, tri = jax.vmap(pack_setup_tables)(setup, gids)     # (B, R, S)
-    else:
-        trf, tri = jax.vmap(lambda st: pack_setup_tables(st, gids))(setup)
-    # Windowed (non-full) SMEM blocks need 8-aligned rows on TPU: pad each
-    # frame's tables to 8-row multiples so a (rows, S) block of the flattened
-    # (B*rows, S) array selects frame b by block index — the kernel body stays
-    # batch-agnostic.
-    f32_rows = _cdiv(_F32_ROWS, 8) * 8
-    i32_rows = _cdiv(_I32_ROWS, 8) * 8
-    trf = jnp.pad(trf, ((0, 0), (0, f32_rows - _F32_ROWS), (0, 0)))
-    tri = jnp.pad(tri, ((0, 0), (0, i32_rows - _I32_ROWS), (0, 0)))
-    trf = trf.reshape(bsz * f32_rows, s)
-    tri = tri.reshape(bsz * i32_rows, s)
-    if ids_resident:
-        counts = jnp.pad(counts.reshape(bsz, 1, nty * ntx),
-                         ((0, 0), (0, 7), (0, 0))).reshape(bsz * 8, nty * ntx)
-    else:
-        # Segmented count table rows: 0 = segment count, 1 = segment start,
-        # 2 = broadband count, 3 = color prefix length of the segment,
-        # 4 = color prefix length of the broadband list (2/4 broadcast
-        # across lanes); padded to 8 rows.
-        ctab = jnp.stack([
-            counts, starts,
-            jnp.broadcast_to(bb_cnt[:, None], counts.shape),
-            ncol,
-            jnp.broadcast_to(bb_ncol[:, None], counts.shape)], axis=1)
-        counts = jnp.pad(ctab, ((0, 0), (0, 3), (0, 0))
-                         ).reshape(bsz * 8, nty * ntx)
-
-    # Atlas rows (NT*512, 512) int32 in VMEM for the in-kernel fetch; a dummy
-    # row block keeps shapes valid for untextured scenes (never fetched).
+    ids, starts, counts, bb, bb_cnt = jax.vmap(partial(
+        bin_segments, width=width, height=height, tile_h=tile_h,
+        tile_w=tile_w, y_offset=y_offset))(setup)
+    trf, tri = jax.vmap(pack_setup_tables)(setup)
     nt = textures.shape[0]
-    if nt:
-        atlas = textures.astype(jnp.int32).reshape(nt * 512, 512)
-    else:
-        atlas = jnp.zeros((512, 512), jnp.int32)
-    atlas_rows = atlas.shape[0]
-    if atlas_rows * 512 * 4 > ATLAS_VMEM_BUDGET:
-        raise ValueError(
-            f"{nt} textures exceed the VMEM atlas budget of the pallas backend")
+    atlas = (jax.lax.bitcast_convert_type(textures, jnp.int32).reshape(-1)
+             if nt else jnp.zeros((1,), jnp.int32))
+    with_gid = gid_base is not None
+    y0 = jnp.asarray(y_offset, jnp.int32).reshape(1)
+    base = jnp.asarray(0 if gid_base is None else gid_base,
+                       jnp.int32).reshape(1)
 
-    # SMEM windows are block-granular on the leading axis: a (R, S) block of a
-    # (B*R, S) array at index (b, 0) is frame b's table — keeps every SMEM ref
-    # 2D (lane padding rules) while the batch rides the grid.
-    smem_b = lambda rows, cols: pl.BlockSpec(  # noqa: E731
-        (rows, cols), lambda b, ty, tx: (b, 0), memory_space=pltpu.SMEM)
-    out_tile = lambda: pl.BlockSpec(  # noqa: E731
-        (1, tile_h, tile_w), lambda b, ty, tx: (b, ty, tx),
-        memory_space=pltpu.VMEM)
-    out_shape = lambda dt: jax.ShapeDtypeStruct(  # noqa: E731
-        (bsz, nty * tile_h, ntx * tile_w), dt)
-
-    if ids_resident:
-        # Whole (B*ntiles, 128) id table SMEM-resident; no scratch/DMA.
-        ids_spec = pl.BlockSpec((ids.shape[0], 128), lambda b, ty, tx: (0, 0),
-                                memory_space=pltpu.SMEM)
-        scratch = []
-        seg_specs, seg_args = [], []
-    else:
-        # The (B, rows, 128) sorted entry array stays in HBM; the kernel DMAs
-        # a seg_rows window at each tile's dynamic row offset into SMEM
-        # scratch. The broadband list rides SMEM per frame.
-        ids_spec = pl.BlockSpec(memory_space=pltpu.MemorySpace.HBM)
-        # Strip-scoped shading scratch (win ids, shade, 1/z, texel planes):
-        # phase 2 merges per 8-row strip through these instead of full-tile
-        # loop carries.
-        tile = (tile_h, tile_w)
-        scratch = [pltpu.SMEM((seg_rows, 128), jnp.int32),
-                   pltpu.SemaphoreType.DMA,
-                   pltpu.VMEM(tile, jnp.int32),     # win ids
-                   pltpu.VMEM(tile, jnp.float32),   # shade factor
-                   pltpu.VMEM(tile, jnp.float32),   # 1/best
-                   pltpu.VMEM(tile, jnp.int32),     # texel row plane
-                   pltpu.VMEM(tile, jnp.int32)]     # texel col plane
-        if sampling == "bilinear":
-            scratch += [pltpu.VMEM(tile, jnp.int32),    # second sample row
-                        pltpu.VMEM(tile, jnp.int32),    # second sample col
-                        pltpu.VMEM(tile, jnp.float32),  # x weight
-                        pltpu.VMEM(tile, jnp.float32)]  # y weight
-        seg_specs = [smem_b(bb_rows, 128)]  # frame b's broadband slots
-        seg_args = [bb]
-
+    out_block = pl.BlockSpec((None, tile_h, tile_w), lambda b, i, j: (b, i, j))
+    padded = (bsz, nty * tile_h, ntx * tile_w)
+    dtypes = (jnp.int32, jnp.float32) + ((jnp.int32,) if with_gid else ())
     outs = pl.pallas_call(
-        _raster_kernel(tile_h, tile_w, background, atlas_rows,
-                       bilinear=(sampling == "bilinear"), phases=phases,
-                       track_ids=track_ids, ids_resident=ids_resident,
-                       segmented=not ids_resident, seg_rows=seg_rows,
-                       strip_h=strip_h),
+        _raster_kernel(tile_h=tile_h, tile_w=tile_w, ntx=ntx, nty=nty,
+                       slots=s, entries=ids.shape[1], background=background,
+                       bilinear=(sampling == "bilinear"), with_gid=with_gid),
         grid=(bsz, nty, ntx),
-        in_specs=[
-            smem_b(8, nty * ntx),           # frame b's count/start/bb rows
-            smem_b(f32_rows, s),            # frame b's f32 constants
-            smem_b(i32_rows, s),            # frame b's i32 constants
-            pl.BlockSpec((1, 1), lambda b, ty, tx: (0, 0),
-                         memory_space=pltpu.SMEM),  # y_offset (shared)
-            ids_spec,
-            *seg_specs,
-            # Whole texture atlas VMEM-resident (1 MB per texture).
-            pl.BlockSpec((atlas_rows, 512), lambda b, ty, tx: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[out_tile()] * (3 if track_ids else 2),
-        out_shape=([out_shape(jnp.int32), out_shape(jnp.float32)]
-                   + ([out_shape(jnp.int32)] if track_ids else [])),
-        scratch_shapes=scratch,
+        out_specs=[out_block] * len(dtypes),
+        out_shape=[jax.ShapeDtypeStruct(padded, dt) for dt in dtypes],
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(counts, trf, tri, y0, ids, *seg_args, atlas)
-    return tuple(o[:, :height, :width].astype(dt) for o, dt in zip(
-        outs, (jnp.uint32, jnp.float32, jnp.int32)))
-
-
-@partial(jax.jit, static_argnames=("width", "height", "background", "tile_h",
-                                   "tile_w", "interpret", "sampling", "phases",
-                                   "spatial", "cap_override"))
-def rasterize_pallas(
-    setup: Dict[str, jnp.ndarray],
-    textures: jnp.ndarray,
-    *,
-    width: int,
-    height: int,
-    background: int,
-    tile_h: int = 64,
-    tile_w: int = 128,
-    y_offset: jnp.ndarray | int = 0,
-    interpret: bool = False,
-    sampling: str = "nearest",
-    phases: str = "full",
-    spatial: bool = False,
-    cap_override: int | None = None,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Full rasterize + shade; returns (pixels (H, W) uint32, depth (H, W) f32).
-
-    Scenes beyond MAX_SLOTS_PER_PASS render in multiple kernel passes merged by
-    depth: passes cover ascending slot ranges and a later pass only wins a pixel
-    on strictly greater 1/z, which preserves the reference's earlier-triangle
-    depth-tie order across the split (render.swift:324).
-
-    ``cap_override`` replaces the per-pass slot cap (tests/probes only: forces
-    the multipass machinery on scenes that would fit one pass).
-    """
-    batched = jax.tree.map(lambda a: a[None], setup)
-    pix, ooz = _rasterize_multipass(
-        batched, textures, spatial=spatial, width=width, height=height,
-        background=background, tile_h=tile_h, tile_w=tile_w,
-        y_offset=y_offset, interpret=interpret, sampling=sampling,
-        phases=phases, cap_override=cap_override,
-        strip_h=_pick_strip_h(height))
-    return pix[0], ooz[0]
-
-
-@partial(jax.jit, static_argnames=("width", "height", "background", "tile_h",
-                                   "tile_w", "interpret", "sampling", "phases",
-                                   "spatial"))
-def rasterize_pallas_batch(
-    setup: Dict[str, jnp.ndarray],  # leading camera-batch axis B on every array
-    textures: jnp.ndarray,
-    *,
-    width: int,
-    height: int,
-    background: int,
-    tile_h: int = 64,
-    tile_w: int = 128,
-    y_offset: jnp.ndarray | int = 0,
-    interpret: bool = False,
-    sampling: str = "nearest",
-    phases: str = "full",
-    spatial: bool = False,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Batched rasterize: (B, H, W) pixels/depth from a setup table with a
-    leading camera-batch axis. The batch rides the kernel grid (B, nty, ntx) —
-    one dispatch renders all B frames (the serving path; jax cannot vmap
-    through a compiled pallas_call)."""
-    return _rasterize_multipass(
-        setup, textures, spatial=spatial, width=width, height=height,
-        background=background, tile_h=tile_h, tile_w=tile_w,
-        y_offset=y_offset, interpret=interpret, sampling=sampling,
-        phases=phases, strip_h=_pick_strip_h(height))
-
-
-def _live_compact(setup, gids=None):
-    """Live-first slot compaction prep, shared by the non-spatial multipass
-    and the triangle-sharded path.
-
-    One single-key i32 sort yields a stable live-first permutation; the slot
-    data rides along via two ``jnp.take_along_axis`` gathers of packed
-    (B, S, 43) f32 / (B, S, 7|8) i32 matrices — measured ~0.25 ms total at
-    S=20166 on chip (the sort dominates; the takes are near-free). An earlier
-    full-table 41-array gather formulation measured 8% SLOWER overall —
-    packing into ONE take per dtype is what makes it cheap.
-
-    Exactness: the permutation is monotone on live slots, so ascending local
-    ids within and across chunks == ascending global ids, and the strict
-    ``o > ooz`` pass merge preserves the reference's earlier-triangle
-    depth-tie order (render.swift:324) exactly as an uncompacted split would;
-    dead slots never bin, so dropping them cannot change winners.
-
-    Returns ``(chunk_setup, nlive_max)``: ``chunk_setup(c0, cap)``
-    materializes (setup slice, global-id slice or None) for the compacted
-    slot range [c0, c0+cap). ``gids`` (S,) opts into carrying each slot's
-    global id through the permutation (the sharded cross-device merge key).
-    """
-    bsz, s = setup["live"].shape
-    idx = jnp.arange(s, dtype=jnp.int32)[None, :]
-    perm = jnp.sort(jnp.where(setup["live"], idx, idx + s), axis=-1) % s
-    nlive_max = setup["live"].sum(axis=-1, dtype=jnp.int32).max()
-    f32_keys = [("w00", 3), ("dx", 3), ("dy", 3), ("rvz", 3),
-                ("cvp", 9), ("np", 9), ("attrp", 9),
-                ("tpp", 2), ("dzv", 2)]
-    i32_keys = ["xmin", "xmax", "ymin", "ymax", "tex"]
-    fmat = jnp.concatenate(
-        [setup[k].reshape(bsz, s, -1) for k, _ in f32_keys],
-        axis=-1)                                        # (B, S, 43) f32
-    icols = ([setup[k] for k in i32_keys]
-             + [setup["is_tex"].astype(jnp.int32),
-                setup["live"].astype(jnp.int32)])
-    if gids is not None:
-        g = jnp.asarray(gids, jnp.int32)
-        if g.ndim == 1:                 # shared across frames
-            g = jnp.broadcast_to(g[None], (bsz, s))
-        icols.append(g)                 # (B, S): per-frame global ids
-    imat = jnp.stack(icols, axis=-1)                    # (B, S, 7|8) i32
-
-    def chunk_setup(c0, cap):
-        # c0 may be a TRACED offset (the while_loop multipass): dynamic_slice
-        # clamps the start so the last window stays in bounds — overlapping a
-        # few already-rendered slots, which is idempotent under the strict
-        # (o > ooz, gid-tie) pass merges: a re-rendered slot reproduces the
-        # exact same depth/gid, which never strictly wins.
-        sel = jax.lax.dynamic_slice_in_dim(perm, c0, min(cap, s), 1)[..., None]
-        f = jnp.take_along_axis(fmat, sel, axis=1)
-        i = jnp.take_along_axis(imat, sel, axis=1)
-        sub, o = {}, 0
-        for k, w in f32_keys:
-            sub[k] = f[:, :, o: o + w].reshape(
-                (bsz, sel.shape[1]) + setup[k].shape[2:])
-            o += w
-        for j, k in enumerate(i32_keys):
-            sub[k] = i[:, :, j]
-        sub["is_tex"] = i[:, :, 5].astype(bool)
-        sub["live"] = i[:, :, 6].astype(bool)
-        return sub, (i[:, :, 7] if gids is not None else None)
-
-    return chunk_setup, nlive_max
-
-
-def _rasterize_compacted_ids(setup, textures, *, gids, cap, **kw):
-    """Live-first compacted multipass that tracks winners' GLOBAL ids.
-
-    The triangle-sharded scene-parallel path (parallel/sharding.py): same
-    compaction + cond-skipped trailing chunks as the non-spatial multipass,
-    but every pass outputs its winners' global setup ids (track_ids) and
-    passes merge by (max 1/z, then min gid) — the exact-tie reference order
-    across any chunk split AND the key the cross-device composite needs.
-    Returns (pix (B,H,W), ooz (B,H,W), gid (B,H,W)); gid == 2**30 where a
-    pixel has no winner."""
-    bsz, s = setup["live"].shape
-    if s <= cap:
-        # Single pass — nothing to skip, so don't pay the compaction sort.
-        pix, ooz, gid = _rasterize_chunk(
-            setup, textures, gids=jnp.asarray(gids, jnp.int32), **kw)
-        return pix, ooz, jnp.where(ooz > 0, gid, jnp.int32(2 ** 30))
-    chunk_setup, nlive_max = _live_compact(setup, gids)
-    sub, g = chunk_setup(0, cap)
-    pix, ooz, gid = _rasterize_chunk(sub, textures, gids=g, **kw)
-    gid = jnp.where(ooz > 0, gid, jnp.int32(2 ** 30))
-
-    # Trailing passes as ONE while_loop body over dynamic chunk windows (see
-    # _rasterize_multipass): a re-rendered overlap slot reproduces its exact
-    # (depth, gid), which the (o > ooz) | (ties to smaller gid) merge never
-    # takes — the clamped last window is idempotent.
-    def more(state):
-        return state[0] * cap < nlive_max
-
-    def body(state):
-        c, pix, ooz, gid = state
-        sub, g = chunk_setup(c * cap, cap)
-        p, o, gg = _rasterize_chunk(sub, textures, gids=g, **kw)
-        gg = jnp.where(o > 0, gg, jnp.int32(2 ** 30))
-        upd = (o > ooz) | ((o == ooz) & (o > 0) & (gg < gid))
-        return (c + 1, jnp.where(upd, p, pix), jnp.where(upd, o, ooz),
-                jnp.where(upd, gg, gid))
-
-    _, pix, ooz, gid = jax.lax.while_loop(
-        more, body, (jnp.int32(1), pix, ooz, gid))
-    return pix, ooz, gid
-
-
-def _triangle_prelive(corners, *, width, height, near, min_area):
-    """Conservative per-TRIANGLE liveness from the UNCLIPPED corners — the
-    front-end analog of the kernel's live-first compaction (round 4).
-
-    Must never cull a triangle that could produce a live setup slot:
-
-    - all corners behind the near plane: the clip prepass invalidates both
-      slots (render.swift:269) — safe to cull.
-    - all corners in front: the primary slot IS the unmodified triangle and
-      the appended slot is invalid, so triangle_setup's screen-bounds + area
-      tests apply EXACTLY here (identical f32 expressions on identical rv
-      values — bit-equal to what triangle_setup would compute).
-    - straddling triangles: the clip rewrites their raster corners, so their
-      post-clip bbox/area is not knowable yet — kept unconditionally.
-    """
-    from .setup import edge_function
-
-    rv = corners["rv"]                       # (T, 3, 3)
-    z = rv[..., 2]
-    front = z > near
-    nf = front.sum(axis=1)
-    all_behind = nf == 0
-    all_front = nf == 3
-    rvmax = rv.max(axis=1)
-    rvmin = rv.min(axis=1)
-    area = edge_function(rv[:, 0, 0], rv[:, 0, 1], rv[:, 1, 0], rv[:, 1, 1],
-                         rv[:, 2, 0], rv[:, 2, 1])
-    front_live = (
-        (rvmax[:, 0] >= 0) & (rvmax[:, 1] >= 0)
-        & (rvmin[:, 0] < width) & (rvmin[:, 1] < height)
-        & (area >= min_area)
-    )
-    return ~all_behind & (~all_front | front_live)
-
-
-def _rasterize_corners_compacted(
-    corners,             # batched stage-A front-end: (B, T, 3, 3) arrays + tex
-    textures,
-    *,
-    near, factor, half_w, half_h, min_area,   # clip/setup constants (host)
-    cap,                 # slot cap of the downstream passes
-    width, height, **kw,
-):
-    """Round-4 front-end compaction: clip prepass + setup table scale with the
-    frame's LIVE triangle count instead of the full scene size.
-
-    The round-3 live-first compaction ran AFTER triangle setup, so at 10k
-    triangles ~0.7 ms of XLA front-end still scaled with the 2T slot table
-    (20,166 slots vs ~3k live). Here the live partition moves ahead of the
-    table build: a conservative triangle cull (_triangle_prelive — exact for
-    fully-in-front triangles, keep-all for near-plane straddlers) compacts
-    the CORNER arrays with the same one-sort + packed-take machinery, and
-    clip_prepass + triangle_setup then run per ``cap``-triangle chunk inside
-    ONE while_loop bounded by the live triangle count — trailing chunks never
-    run their gather, clip, setup, binning or kernel passes, and the loop
-    body compiles ONCE regardless of scene size. Each chunk's 2*cap-slot
-    table feeds the existing slot-compacted multipass (which collapses the
-    dead clip-headroom half back out), so kernel passes stay
-    ~ceil(live_slots / cap).
-
-    Exactness: clip/setup are elementwise per triangle, so chunking cannot
-    change their f32 values; the triangle permutation is monotone on live
-    triangles and slots inherit it pairwise (2t, 2t+1), so ascending local
-    slot order == ascending global order among live slots and the strict
-    ``o > ooz`` chunk merge preserves the reference's earlier-triangle
-    depth-tie rule (render.swift:324). Pre-culled triangles fail
-    triangle_setup's own live tests by construction, so compaction only
-    reorders work, never changes winners.
-    """
-    from .clip import clip_prepass
-    from .setup import triangle_setup
-
-    bsz, t = corners["tex"].shape
-    live = jax.vmap(partial(_triangle_prelive, width=width, height=height,
-                            near=near, min_area=min_area))(corners)  # (B, T)
-    fmat = jnp.concatenate(
-        [corners[k].reshape(bsz, t, 9) for k in ("cv", "rv", "attr", "n")],
-        axis=-1)                                            # (B, T, 36)
-    tex = corners["tex"].astype(jnp.int32)                  # (B, T)
-    idx = jnp.arange(t, dtype=jnp.int32)[None, :]
-    perm = jnp.sort(jnp.where(live, idx, idx + t), axis=-1) % t
-    nlive_max = live.sum(axis=-1, dtype=jnp.int32).max()
-
-    def chunk_frame(c0):
-        # c0 may be traced (the while_loop below); the clamped last window
-        # re-renders a few triangles, which is idempotent under the strict
-        # o > ooz chunk merge (identical slots reproduce identical depth).
-        sel = jax.lax.dynamic_slice_in_dim(perm, c0, min(cap, t), 1)[..., None]
-        f = jnp.take_along_axis(fmat, sel, axis=1)
-        tx = jnp.take_along_axis(tex, sel[..., 0], axis=1)
-        cc = {k: f[:, :, 9 * j: 9 * j + 9].reshape(bsz, -1, 3, 3)
-              for j, k in enumerate(("cv", "rv", "attr", "n"))}
-
-        def one(cv, rv, attr, n, tx):
-            crn = clip_prepass(cv=cv, rv=rv, attr=attr, n=n, tex=tx,
-                               near=near, factor=factor,
-                               half_w=half_w, half_h=half_h)
-            return triangle_setup(crn, width, height, min_area)
-
-        return jax.vmap(one)(cc["cv"], cc["rv"], cc["attr"], cc["n"], tx)
-
-    pix, ooz = _rasterize_multipass(
-        chunk_frame(0), textures, width=width, height=height, **kw)
-    if t <= cap:
-        return pix, ooz
-
-    # Trailing triangle chunks as ONE while_loop body over dynamic windows
-    # (see _rasterize_multipass: a cond CHAIN compiled one clip+setup+kernel
-    # pipeline per chunk; the body is identical up to the window offset).
-    def more(state):
-        return state[0] * cap < nlive_max
-
-    def body(state):
-        c, pix, ooz = state
-        p, o = _rasterize_multipass(
-            chunk_frame(c * cap), textures, width=width, height=height, **kw)
-        upd = o > ooz
-        return (c + 1, jnp.where(upd, p, pix), jnp.where(upd, o, ooz))
-
-    _, pix, ooz = jax.lax.while_loop(more, body, (jnp.int32(1), pix, ooz))
-    return pix, ooz
-
-
-def _rasterize_corners_ids(
-    corners, textures, *,
-    near, factor, half_w, half_h, min_area, cap,
-    width, height, gid_base=0, **kw,
-):
-    """Compact-early front-end WITH global winner ids — the triangle-sharded
-    path's per-device pipeline (round 5).
-
-    Same prelive cull + compaction + per-chunk clip/setup as
-    ``_rasterize_corners_compacted`` (the front-end scales with the LOCAL
-    range's live triangle count, never the full 2T table), but every kernel
-    pass tracks winners' GLOBAL slot ids and chunks merge by (max 1/z, then
-    min gid). ``gid_base`` is the range's first global triangle index; slot
-    gid = 2 * (gid_base + triangle) + {0, 1} (the clip_prepass
-    interleaving), so ascending gids == the framework's global slot order
-    and the composite preserves the reference's earlier-triangle-wins depth
-    ties (render.swift:324) across any chunk AND device split. Returns
-    (pix, ooz, gid) with gid == 2**30 where a pixel has no winner (the
-    composite's identity element).
-
-    Ranges that fit one pass skip the compaction machinery entirely. The
-    clamped last chunk window re-renders a few triangles, which reproduce
-    their exact (depth, gid) — never a strict win nor a smaller-gid tie —
-    so the overlap is idempotent.
-    """
-    from .clip import clip_prepass
-    from .setup import triangle_setup
-
-    bsz, t = corners["tex"].shape
-
-    def setup_of(cc, tx):
-        def one(cv, rv, attr, n, tx):
-            crn = clip_prepass(cv=cv, rv=rv, attr=attr, n=n, tex=tx,
-                               near=near, factor=factor,
-                               half_w=half_w, half_h=half_h)
-            return triangle_setup(crn, width, height, min_area)
-
-        return jax.vmap(one)(cc["cv"], cc["rv"], cc["attr"], cc["n"], tx)
-
-    if 2 * t <= cap:
-        gids = 2 * gid_base + jnp.arange(2 * t, dtype=jnp.int32)
-        return _rasterize_compacted_ids(
-            setup_of(corners, corners["tex"]), textures, gids=gids, cap=cap,
-            width=width, height=height, **kw)
-
-    # Prelive compaction (see _rasterize_corners_compacted for the cost and
-    # exactness notes); chunks of ``cap`` triangles, each rendered through
-    # the id-tracking slot-compacted multipass with its own global gids.
-    live = jax.vmap(partial(_triangle_prelive, width=width, height=height,
-                            near=near, min_area=min_area))(corners)  # (B, T)
-    fmat = jnp.concatenate(
-        [corners[k].reshape(bsz, t, 9) for k in ("cv", "rv", "attr", "n")],
-        axis=-1)                                            # (B, T, 36)
-    tex = corners["tex"].astype(jnp.int32)
-    idx = jnp.arange(t, dtype=jnp.int32)[None, :]
-    perm = jnp.sort(jnp.where(live, idx, idx + t), axis=-1) % t
-    nlive_max = live.sum(axis=-1, dtype=jnp.int32).max()
-
-    def chunk_frame(c0):
-        sel = jax.lax.dynamic_slice_in_dim(perm, c0, min(cap, t), 1)
-        f = jnp.take_along_axis(fmat, sel[..., None], axis=1)
-        tx = jnp.take_along_axis(tex, sel, axis=1)
-        cc = {k: f[:, :, 9 * j: 9 * j + 9].reshape(bsz, -1, 3, 3)
-              for j, k in enumerate(("cv", "rv", "attr", "n"))}
-        g = (2 * (gid_base + sel[:, :, None])
-             + jnp.arange(2, dtype=jnp.int32)).reshape(bsz, -1)
-        return setup_of(cc, tx), g
-
-    setup0, g0 = chunk_frame(0)
-    pix, ooz, gid = _rasterize_compacted_ids(
-        setup0, textures, gids=g0, cap=cap, width=width, height=height, **kw)
-    if t <= cap:
-        return pix, ooz, gid
-
-    def more(state):
-        return state[0] * cap < nlive_max
-
-    def body(state):
-        c, pix, ooz, gid = state
-        sub, g = chunk_frame(c * cap)
-        p, o, gg = _rasterize_compacted_ids(
-            sub, textures, gids=g, cap=cap, width=width, height=height, **kw)
-        upd = (o > ooz) | ((o == ooz) & (o > 0) & (gg < gid))
-        return (c + 1, jnp.where(upd, p, pix), jnp.where(upd, o, ooz),
-                jnp.where(upd, gg, gid))
-
-    _, pix, ooz, gid = jax.lax.while_loop(
-        more, body, (jnp.int32(1), pix, ooz, gid))
-    return pix, ooz, gid
-
-
-def _rasterize_multipass(setup, textures, spatial=False, cap_override=None,
-                         **kw):
-    bsz, s = setup["live"].shape
-    cap = cap_override or (
-        MAX_SLOTS_PER_PASS_B1 if bsz == 1 else MAX_SLOTS_PER_PASS)
-    if textures.shape[0] > MAX_ATLAS_TEXTURES:
-        return _rasterize_texture_paged(setup, textures, cap=cap, **kw)
-    if s <= cap:
-        pix, ooz = _rasterize_chunk(setup, textures, **kw)
-        return pix, ooz
-
-    if not spatial:
-        # LIVE-FIRST COMPACTION before chunking: a stable partition (live
-        # slots first, each group in ascending slot order — ONE single-key
-        # i32 sort) packs every live slot into the leading chunks, so the
-        # number of kernel passes that actually run follows the frame's LIVE
-        # count, not the table size: a 20k-slot table with 3k live slots
-        # (typical for the 10k-triangle stress scene — frustum culling kills
-        # most of the field, and the clip-headroom half is dead by
-        # construction) renders in ONE pass instead of three. Trailing
-        # passes run inside ONE while_loop whose bound is the live count
-        # (round 4; replaced a per-chunk lax.cond CHAIN that compiled a
-        # separate kernel instance per chunk — compile time at 10k triangles
-        # scaled with the table size while the loop body is identical up to
-        # the chunk offset). (Cost/exactness notes: _live_compact.)
-        chunk_setup, nlive_max = _live_compact(setup)
-        pix, ooz = _rasterize_chunk(chunk_setup(0, cap)[0], textures, **kw)
-
-        def more(state):
-            return state[0] * cap < nlive_max
-
-        def body(state):
-            c, pix, ooz = state
-            p, o = _rasterize_chunk(chunk_setup(c * cap, cap)[0], textures,
-                                    **kw)
-            upd = o > ooz
-            return (c + 1, jnp.where(upd, p, pix), jnp.where(upd, o, ooz))
-
-        _, pix, ooz = jax.lax.while_loop(
-            more, body, (jnp.int32(1), pix, ooz))
-        return pix, ooz
-
-    # Spatial slot partitioning: order slots by their bbox's top row (dead
-    # slots last), so each pass's triangles cluster in a horizontal band and
-    # the rest of the grid runs near-empty (count-0 tiles skip visibility,
-    # shading AND the texel fetch; the clip-headroom dead half of the table
-    # collapses into all-dead trailing passes). Uses frame 0's geometry for
-    # the order — camera batches share the scene, so bands stay coherent.
-    # Exactness across the permutation: each pass outputs its winners' GLOBAL
-    # setup ids, and the merge prefers, at equal depth, the smaller global id
-    # — the reference's earlier-triangle-wins order (render.swift:324) no
-    # matter how slots were split into passes. Within a pass, ids are sorted
-    # ascending so the kernel's strict in-pass rule keeps the same order.
-    # Measured: helps geometry spread across the frame; for scenes whose
-    # triangles concentrate in one band the id plane/merge costs ~0.2 ms/pass
-    # with no tile savings — hence opt-in.
-    order = jnp.argsort(jnp.where(setup["live"][0], setup["ymin"][0],
-                                  jnp.int32(2**30)))
-    pix = ooz = gid = None
-    for c0 in range(0, s, cap):
-        sel = jnp.sort(order[c0: c0 + cap])
-        sub = {key: v[:, sel] for key, v in setup.items()}
-        p, o, g = _rasterize_chunk(sub, textures, gids=sel, **kw)
-        if pix is None:
-            pix, ooz, gid = p, o, g
-        else:
-            upd = (o > ooz) | ((o == ooz) & (g >= 0)
-                              & ((gid < 0) | (g < gid)))
-            pix = jnp.where(upd, p, pix)
-            ooz = jnp.where(upd, o, ooz)
-            gid = jnp.where(upd, g, gid)
-    return pix, ooz
-
-
-def _rasterize_texture_paged(setup, textures, *, cap, **kw):
-    """Scenes beyond the VMEM atlas budget: render in texture PAGES.
-
-    Page p holds textures [p*96, (p+1)*96); its passes render only the slots
-    whose texture id falls in the page (untextured slots ride page 0), with
-    the page's atlas slice VMEM-resident and slot tex ids remapped page-local.
-    Out-of-page slots are culled by the ``live`` mask, so they drop out of
-    binning entirely — a page's tiles bin only its own slots, and shading /
-    texel-fetch work does not multiply across pages; only the per-pass grid
-    fixed cost does (npages = ceil(NT / 96) passes for single-page-sized slot
-    tables).
-
-    Exactness: every pass outputs its winners' GLOBAL slot ids, and passes
-    merge by (max 1/z, then min global id) — the same exact-tie merge the
-    spatial slot multipass uses — so the composite is pixel-identical to a
-    hypothetical single pass over an unbounded atlas, preserving the
-    reference's earlier-triangle-wins depth ties (render.swift:324) across
-    any page/chunk split. Within a pass, slot order is untouched (ascending),
-    so the kernel's strict in-pass rule keeps the same order.
-
-    This replaces the former transparent XLA fallback, which was ~7x slower
-    than the reference C++ core at 1080p; the XLA rasterizer remains as an
-    explicit CPU/portability backend only.
-    """
-    bsz, s = setup["live"].shape
-    nt = textures.shape[0]
-    npages = _cdiv(nt, MAX_ATLAS_TEXTURES)
-    gids = jnp.arange(s, dtype=jnp.int32)
-    pix = ooz = gid = None
-    for page in range(npages):
-        t0 = page * MAX_ATLAS_TEXTURES
-        t1 = min(t0 + MAX_ATLAS_TEXTURES, nt)
-        in_page = (setup["is_tex"] & (setup["tex"] >= t0)
-                   & (setup["tex"] < t1))
-        keep = in_page if page else (in_page | ~setup["is_tex"])
-        sub = dict(setup)
-        sub["live"] = setup["live"] & keep
-        # Page-local atlas indices; out-of-page slots are dead (never binned),
-        # 0 just keeps their table rows in-range.
-        sub["tex"] = jnp.where(in_page, setup["tex"] - t0, 0)
-        atlas_page = textures[t0:t1]
-        for c0 in range(0, s, cap):
-            chunk = {k: v[:, c0: c0 + cap] for k, v in sub.items()}
-            p, o, g = _rasterize_chunk(chunk, atlas_page,
-                                       gids=gids[c0: c0 + cap], **kw)
-            if pix is None:
-                pix, ooz, gid = p, o, g
-            else:
-                upd = (o > ooz) | ((o == ooz) & (g >= 0)
-                                  & ((gid < 0) | (g < gid)))
-                pix = jnp.where(upd, p, pix)
-                ooz = jnp.where(upd, o, ooz)
-                gid = jnp.where(upd, g, gid)
-    return pix, ooz
-
-
-def _pick_tile_h(dev, height: int, cap: int) -> int:
-    """Adaptive tile height: 128 from 720p up (fewer grid steps once the
-    strip/block fetch made the per-step fixed cost dominant). Multi-pass
-    scenes used to keep 64 (finer binning won when every binned slot
-    evaluated the whole tile: 10,083 tris @1080p measured 11.7 ms at 64 vs
-    13.1 at 128 in round 2) — the segmented strip-scoped front-end made
-    per-entry work follow the bbox instead, flipping the tradeoff (round 3:
-    4.5 ms at 128 vs 5.2 at 72, on-chip).
-
-    EXACT-FIT refinement (round 3, on-chip): when 120 tiles the height with
-    zero padded rows AND 128 would pad noticeably (720/1080: 1080 = 9x120 vs
-    9x128 = 1152 processed rows, 6.7% dead), 120 measured 0.686 ms vs
-    0.793-0.798 at 128 on the 1080p headline (with 24-row fetch strips — see
-    the strip legalization): the padded bottom band ran through every vector
-    phase. 4K hardcodes 216 — the MEASURED OPTIMUM among the exact-fit
-    candidates, not a tallest-divisor rule (round 4, on-chip sweep with
-    24-row strips): 216 (2160 = 10x216, 300 grid steps) measured 2.41 ms vs
-    128's 2.47-2.54 (510 steps) and the taller exact-fit 240's 2.58 (fewer
-    steps but 10 fetch strips of 24 per tile vs 216's 9 — per-strip fixed
-    cost beats the step saving); 360/432 exceed the 256-row tile cap. A
-    height >= 2160 not divisible by 216 falls through to the 120/128 rule."""
-    if height >= 2160 and height % 216 == 0:
-        return 216
-    if height >= 720:
-        pad = -height % 128
-        if height % 120 == 0 and pad * 50 > height:  # >2% padded rows
-            return 120
-        return 128
-    return 64
-
-
-@partial(jax.jit, static_argnames=("width", "height", "config", "tile_h",
-                                   "tile_w", "interpret", "compact_early"))
+        name="raster_tile",
+    )(y0, base, bb_cnt, bb.reshape(-1), starts.reshape(-1),
+      counts.reshape(-1), ids.reshape(-1), trf.reshape(-1), tri.reshape(-1),
+      atlas)
+    outs = [o[:, :height, :width] for o in outs]
+    outs[0] = outs[0].astype(jnp.uint32)
+    return tuple(outs)
+
+
+@partial(jax.jit, static_argnames=("width", "height", "config", "interpret"))
 def render_frame_pallas(
     dev: Dict[str, jnp.ndarray],
     m: jnp.ndarray,
@@ -2175,56 +316,20 @@ def render_frame_pallas(
     width: int,
     height: int,
     config: RenderConfig = DEFAULT_CONFIG,
-    tile_h: int | None = None,
-    tile_w: int = 128,
     interpret: bool = False,
-    compact_early: bool = True,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Full frame: geometry front-end + Pallas visibility/shading + texel fetch.
+    """Full frame: geometry front-end, binning and the tile kernel."""
+    from ..renderer import build_setup
 
-    ``tile_h=None`` defers to ``_pick_tile_h`` (the single source of truth):
-    64 below 720p, otherwise 128 — refined to 120 when 120 tiles the height
-    exactly AND 128 would pad >2% dead rows (720/1080/1440: 1080 = 9x120 vs
-    9x128 = 1152 processed rows; 120 measured 0.686 ms vs 0.79 at 128 on the
-    1080p headline). Multi-pass scenes use the same rule since round 3 (the
-    strip-scoped kernel decoupled per-entry work from tile height).
-
-    Scenes whose texture set exceeds the kernel's VMEM atlas budget render in
-    texture pages (_rasterize_texture_paged) — still fully in-kernel, ~npages
-    kernel passes merged exactly by (depth, global slot id).
-    """
-    if tile_h is None:
-        tile_h = _pick_tile_h(dev, height, MAX_SLOTS_PER_PASS_B1)
-    from ..renderer import build_corners, build_setup
-
-    t = dev["vert_c"].shape[0]
-    if compact_early and 2 * t > MAX_SLOTS_PER_PASS_B1:
-        # Large scene: compact triangles BEFORE the clip prepass and setup
-        # table so the whole front-end scales with the live count (round 4;
-        # small scenes keep the unchanged direct path below).
-        corners = jax.tree.map(
-            lambda a: a[None],
-            build_corners(dev, m, width=width, height=height, config=config))
-        pix, ooz = _rasterize_corners_compacted(
-            corners, dev["textures"],
-            near=config.near, factor=config.factor(height),
-            half_w=width / 2.0, half_h=height / 2.0,
-            min_area=config.min_area, cap=MAX_SLOTS_PER_PASS_B1,
-            width=width, height=height,
-            background=config.background_packed, tile_h=tile_h,
-            tile_w=tile_w, y_offset=0, interpret=interpret,
-            sampling=config.sampling, strip_h=_pick_strip_h(height))
-        return pix[0], ooz[0]
     setup = build_setup(dev, m, width=width, height=height, config=config)
-    return rasterize_pallas(
-        setup, dev["textures"], width=width, height=height,
-        background=config.background_packed, tile_h=tile_h, tile_w=tile_w,
-        interpret=interpret, sampling=config.sampling,
-    )
+    pix, ooz = rasterize(
+        jax.tree.map(lambda a: a[None], setup), dev["textures"],
+        width=width, height=height, background=config.background_packed,
+        sampling=config.sampling, interpret=kernel_mode(interpret))
+    return pix[0], ooz[0]
 
 
-@partial(jax.jit, static_argnames=("width", "height", "config", "tile_h",
-                                   "tile_w", "interpret", "compact_early"))
+@partial(jax.jit, static_argnames=("width", "height", "config", "interpret"))
 def render_batch_pallas(
     dev: Dict[str, jnp.ndarray],
     ms: jnp.ndarray,  # (B, 3, 4) camera batch
@@ -2232,39 +337,14 @@ def render_batch_pallas(
     width: int,
     height: int,
     config: RenderConfig = DEFAULT_CONFIG,
-    tile_h: int | None = None,
-    tile_w: int = 128,
     interpret: bool = False,
-    compact_early: bool = True,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Batch of frames in ONE kernel dispatch: the camera axis rides the
-    kernel grid (B, nty, ntx), so B frames cost ~B kernel-grid time with a
-    single geometry front-end batch — no per-frame dispatch or lax.map."""
-    cap = MAX_SLOTS_PER_PASS_B1 if ms.shape[0] == 1 else MAX_SLOTS_PER_PASS
-    if tile_h is None:
-        # The multipass cap depends on the actual batch size: B=1 SMEM tables
-        # are full-resident (MAX_SLOTS_PER_PASS_B1), matching
-        # _rasterize_multipass's own pick.
-        tile_h = _pick_tile_h(dev, height, cap)
-    from ..renderer import build_corners, build_setup
+    """A camera batch in ONE kernel launch: the batch is a grid axis."""
+    from ..renderer import build_setup
 
-    t = dev["vert_c"].shape[0]
-    if compact_early and 2 * t > cap:
-        corners = jax.vmap(lambda m: build_corners(
-            dev, m, width=width, height=height, config=config))(ms)
-        return _rasterize_corners_compacted(
-            corners, dev["textures"],
-            near=config.near, factor=config.factor(height),
-            half_w=width / 2.0, half_h=height / 2.0,
-            min_area=config.min_area, cap=cap,
-            width=width, height=height,
-            background=config.background_packed, tile_h=tile_h,
-            tile_w=tile_w, y_offset=0, interpret=interpret,
-            sampling=config.sampling, strip_h=_pick_strip_h(height))
     setup = jax.vmap(lambda m: build_setup(
         dev, m, width=width, height=height, config=config))(ms)
-    return rasterize_pallas_batch(
+    return rasterize(
         setup, dev["textures"], width=width, height=height,
-        background=config.background_packed, tile_h=tile_h, tile_w=tile_w,
-        interpret=interpret, sampling=config.sampling,
-    )
+        background=config.background_packed, sampling=config.sampling,
+        interpret=kernel_mode(interpret))

@@ -1,7 +1,7 @@
 """XLA rasterizer backend: band-looped visibility resolve + deferred shading.
 
 The reference walks each triangle's bbox serially with incremental edge functions
-(render/render.swift:320-342). The TPU recast evaluates coverage for *chunks of
+(render/render.swift:320-342). This backend evaluates coverage for *chunks of
 triangles at once* over *bands of pixel rows*, resolving the depth test as a
 running max over 1/z (exactly the reference's ``oneOverZ > depth`` test with
 0-cleared depth, render.swift:323-325), then shades each pixel once from its

@@ -1,4 +1,4 @@
-"""Vertex and normal stages — batched matmuls on the MXU.
+"""Vertex and normal stages — batched matmuls.
 
 The reference transforms vertices and normals in scalar loops
 (render/render.swift:248-255); here both stages are single ``(N, 4) @ (4, 3)``
@@ -11,8 +11,9 @@ import jax
 import jax.numpy as jnp
 
 # These matmuls are tiny (V x 4 @ 4 x 3); full f32 precision costs nothing and is
-# required for pixel parity with the f32 CPU oracle — the TPU MXU's default
-# reduced-precision passes visibly shift barycentric weights.
+# required for pixel parity with the f32 CPU oracle — on the GPU an f32 matmul
+# may otherwise run in TF32 (about three decimal digits), which visibly shifts
+# raster vertices and barycentric weights.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 

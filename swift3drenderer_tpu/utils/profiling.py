@@ -1,20 +1,19 @@
-"""Tracing / profiling utilities.
+"""Tracing / timing utilities.
 
 The reference's only instrumentation is the 1 Hz frame-budget printout
-(reference main.swift:143-153, mirrored in utils/telemetry.py). The TPU-native
-equivalents here: ``jax.profiler`` trace capture around render calls, and
-steady-state device timing that chains frames in one ``lax.scan`` so tunneled or
-high-latency attachments don't pollute the numbers (see bench.py for the
-protocol rationale).
+(reference main.swift:143-153, mirrored in utils/telemetry.py). Here:
+``jax.profiler`` trace capture around render calls, the device a number was
+measured on, and wall-clock timing of device work that ends in
+``block_until_ready`` (JAX returns before the device finishes).
 """
 
 from __future__ import annotations
 
 import contextlib
+import statistics
+import subprocess
 import time
 from typing import Callable
-
-import numpy as np
 
 
 @contextlib.contextmanager
@@ -29,50 +28,44 @@ def device_trace(log_dir: str):
         jax.profiler.stop_trace()
 
 
-def steady_state_frame_time(
-    render_one: Callable,
-    matrices: np.ndarray,
-    *,
-    trials: int = 3,
-    checksum_stride: int = 64,
-) -> float:
-    """Median steady-state seconds/frame of ``render_one(m) -> (pixels, depth)``.
-
-    Chains len(matrices) frames inside one jitted ``lax.scan`` (per-frame
-    checksums keep every frame live), subtracts the measured cost of an
-    identical empty chain (dispatch + host roundtrip), and returns the best of
-    ``trials`` runs.
-    """
+def device_summary() -> dict:
+    """The device numbers are taken on, as JAX reports it."""
     import jax
-    import jax.numpy as jnp
 
-    mats = jnp.asarray(matrices, jnp.float32)
-    frames = mats.shape[0]
+    d = jax.devices()[0]
+    return {"platform": d.platform, "kind": d.device_kind,
+            "count": len(jax.devices())}
 
-    @jax.jit
-    def chain(ms):
-        def body(c, m):
-            px, _ = render_one(m)
-            return c, px[::checksum_stride, ::checksum_stride].astype(
-                jnp.uint32).sum()
-        _, sums = jax.lax.scan(body, 0, ms)
-        return sums
 
-    @jax.jit
-    def empty(ms):
-        def body(c, m):
-            return c, m.sum()
-        _, sums = jax.lax.scan(body, 0, ms)
-        return sums
+def card_power_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them (a card
+    set below its maximum power runs slower under load), or "not available"
+    off an NVIDIA card. Runs a child process that stays off JAX."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return "not available"
+    return out.strip() or "not available"
 
-    def timed(fn):
-        float(np.asarray(fn(mats)).sum())  # compile + warm
-        best = float("inf")
-        for _ in range(trials):
-            t0 = time.perf_counter()
-            float(np.asarray(fn(mats)).sum())
-            best = min(best, (time.perf_counter() - t0) / frames)
-        return best
 
-    overhead = timed(empty)
-    return max(timed(chain) - overhead, 1e-9)
+def median_ms(fn: Callable[[], object], *, reps: int = 10) -> float:
+    """Median wall-clock milliseconds of ``reps`` calls of ``fn()``, each
+    waited for with ``block_until_ready``. Not counted: the first call
+    (compilation), then further calls until 0.3 s have passed — an idle GPU
+    lowers its clocks, and a few milliseconds of work do not bring them back
+    up."""
+    import jax
+
+    t_end = time.perf_counter() + 0.3
+    jax.block_until_ready(fn())
+    while time.perf_counter() < t_end:
+        jax.block_until_ready(fn())
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn())
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3

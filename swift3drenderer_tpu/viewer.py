@@ -2,7 +2,7 @@
 reference's windowed present path (reference main.swift:124-140: pixel buffer ->
 CIImage -> CAMetalLayer drawable).
 
-A TPU host has no display, so the "window" is the user's browser:
+A headless accelerator host has no display, so the "window" is the user's browser:
 
 * ``GET /``        a page with the live view, pointer-lock mouse capture and
                    WASD key handling (the reference's click-to-capture cursor

@@ -118,7 +118,7 @@ def test_elastic_fallback_to_native_backend(monkeypatch, native_lib):
     ok = loop.step()
 
     def boom(*a, **k):
-        raise RuntimeError("TPU worker process crashed or restarted")
+        raise RuntimeError("device worker process crashed or restarted")
 
     monkeypatch.setattr(loop.renderer, "render", boom)
     px = loop.step()
@@ -141,7 +141,7 @@ def test_elastic_failover_heals_and_survives_second_failure(monkeypatch,
     ok = loop.step()
 
     def boom(*a, **k):
-        raise RuntimeError("TPU worker process crashed or restarted")
+        raise RuntimeError("device worker process crashed or restarted")
 
     monkeypatch.setattr(loop.renderer, "render", boom)
     loop.step()

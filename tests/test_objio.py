@@ -81,7 +81,8 @@ def test_obj_renders_on_all_backends():
     gp, gd = golden_render(scene, m, 160, 120)
     assert (gd > 0).sum() > 300  # cube visible
     for backend in ("xla", "pallas"):
-        px, _ = Renderer(scene, backend=backend).render(m, 160, 120)
+        px, _ = Renderer(scene, backend=backend,
+                         interpret=(backend == "pallas")).render(m, 160, 120)
         assert pixel_mismatch_fraction(gp, px, tol=1) < 0.003, backend
 
 

@@ -101,7 +101,7 @@ def test_pack_unpack_words():
 
 
 def test_photo_texture_words():
-    # Real-imagery atlases (VERDICT #9): built from sample photographs bundled
+    # Real-imagery atlases: built from sample photographs bundled
     # with installed packages (sklearn/matplotlib) via build_ripmap_atlas —
     # the non-copied analog of the reference's painting scans (README.md:21).
     from swift3drenderer_tpu.models.textures import photo_texture_words

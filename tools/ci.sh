@@ -1,6 +1,6 @@
 #!/bin/sh
-# Full local check battery. CPU-only parts always run; on-chip validation runs
-# when a TPU is attached (skip with S3D_SKIP_TPU=1).
+# Full local check battery. CPU-only parts always run; the on-card smoke run
+# and the headline bench run when JAX finds a GPU (skip with S3D_SKIP_GPU=1).
 set -e
 cd "$(dirname "$0")/.."
 
@@ -15,13 +15,13 @@ python -c "
 import __graft_entry__ as g
 g.dryrun_multichip(8)"
 JAX_PLATFORMS=cpu python -c "
-import jax; jax.config.update('jax_platforms', 'cpu')
 import __graft_entry__ as g
 fn, args = g.entry(); print('entry:', fn(*args).shape)"
 
-if [ "${S3D_SKIP_TPU:-0}" != "1" ]; then
-    echo "== on-chip kernel validation =="
-    python tools/tpu_validate.py
+if [ "${S3D_SKIP_GPU:-0}" != "1" ] && python -c "
+import jax, sys; sys.exit(jax.default_backend() != 'gpu')"; then
+    echo "== on-card smoke run =="
+    python chip_smoke.py
     echo "== headline bench =="
     python bench.py
 fi

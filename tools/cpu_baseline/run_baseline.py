@@ -1,7 +1,7 @@
 """Measure the reference C++ -O2 CPU renderer at the five BASELINE.json configs.
 
 Builds per-config scene data.bin files with the framework's generator (the same
-scenes the TPU bench renders), runs the headless harness, and prints a BASELINE.md
+scenes the device bench renders), runs the headless harness, and prints a BASELINE.md
 table plus a JSON blob. Run from the repo root:
 
     python tools/cpu_baseline/run_baseline.py
